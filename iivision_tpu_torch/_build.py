@@ -1,0 +1,126 @@
+"""nvcc build of the port's CUDA kernels, loaded with ctypes.
+
+Every `csrc/*.cu` source compiles, with a plain C interface and no
+PyTorch headers, into one shared library for Hopper:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o _build/libiiv_kernels-<hash>.so
+         csrc/*.cu
+
+The library lands in `iivision_tpu_torch/_build/`, named by a hash of the
+sources and flags, so an edited kernel never loads a stale binary; ptxas's
+per-kernel register and shared-memory report is kept beside it as
+`<name>.log`.  The build runs at first use (a few seconds), never at
+import.  A failed build raises.
+"""
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+# (name, argtypes) of every C entry point; each returns a cudaError_t
+SIGNATURES = {
+    "iiv_editdist_tile": [_P, _I, _P, _I, _I, _P, _P, _P],
+    "iiv_dist_pairs": [_P, _P, _L, _I, _P, _P, _P],
+    "iiv_subop_chain": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+}
+
+
+def sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(path):
+        return path
+    raise RuntimeError("nvcc not found on PATH or under %s: the port's "
+                       "CUDA kernels cannot be built" % home)
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        with open(src, "rb") as f:
+            h.update(os.path.basename(src).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, "libiiv_kernels-%s.so" % h.hexdigest()[:16])
+
+
+def build() -> dict:
+    """Compile the kernels if this source hash has no library yet.
+
+    Returns {"path", "seconds", "built", "log"}: `built` is False when an
+    existing library was reused, `log` holds nvcc's ptxas report."""
+    out = library_path()
+    log_path = out[:-3] + ".log"
+    if os.path.exists(out):
+        log = open(log_path).read() if os.path.exists(log_path) else ""
+        return dict(path=out, seconds=0.0, built=False, log=log)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.time()
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed (%d):\n%s%s" % (
+                proc.returncode, proc.stdout, proc.stderr))
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    log = proc.stdout + proc.stderr
+    with open(log_path, "w") as f:
+        f.write(log)
+    return dict(path=out, seconds=time.time() - t0, built=True, log=log)
+
+
+@functools.lru_cache(None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed), with argtypes
+    and restype declared for every entry point."""
+    lib = ctypes.CDLL(build()["path"])
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.iiv_error_string.argtypes = [ctypes.c_int]
+    lib.iiv_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point `name`; raise if it reports a CUDA error (the
+    entry points return cudaGetLastError() right after their launch)."""
+    lib = library()
+    err = getattr(lib, name)(*args)
+    if err != 0:
+        raise RuntimeError("%s: CUDA error %d (%s)" % (
+            name, err, lib.iiv_error_string(err).decode()))
+
+
+def stream_ptr(device) -> int:
+    """PyTorch's current CUDA stream on `device`, as an integer handle."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

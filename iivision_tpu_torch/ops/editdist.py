@@ -1,0 +1,190 @@
+"""Edit-distance tables in torch, through kernel A (counterpart of
+iivision_tpu/ops/editdist.py).
+
+The diagonal reduction of the weighted Damerau-Levenshtein distance, and
+its proof, are in the JAX module's docstring.  This module has:
+
+- `dp_distance_tile`: the plain torch form for all pairs of a tile,
+  written as the recurrence itself (a cost lookup per position);
+- `pair_distance`: all pairs through kernel A's `editdist_tile` entry (the
+  counterpart of the Pallas `pallas_distance`);
+- `dist_pairs_elementwise`: elementwise pairs through kernel A's
+  `dist_pairs` entry (the encoder's chunk-start diff);
+- `edit_distance_matrix` and `build_tables`: whole-lane LUTs.
+
+A wrapper runs its plain version only for CPU tensors.  For CUDA tensors
+it launches the kernel (csrc/editdist.cu) or raises.  Each wrapper counts
+its kernel launches in its `launches` attribute.
+
+The code strings, the cost matrix, the scalar oracle and the npz writer
+are shared with the JAX package.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from iivision_tpu.ops.editdist import (  # noqa: F401
+    dam_lev_scalar, lane_pixel_codes, save_tables, substitute_matrix)
+from iivision_tpu.palettes import Palette
+from iivision_tpu.screen import spec_for_mode
+from iivision_tpu.video_mode import VideoMode
+
+from iivision_tpu_torch import _build
+
+TRANSPOSE_COST = 1
+MAX_L = 32  # longest code string kernel A accepts
+
+
+def dp_distance_tile(a_codes: torch.Tensor, b_codes: torch.Tensor,
+                     sub: torch.Tensor) -> torch.Tensor:
+    """(M, N) int32 distances for all pairs of (M, L) and (N, L) codes,
+    plain torch.  sub: (16, 16) integer costs."""
+    a = a_codes.to(torch.int64)
+    b = b_codes.to(torch.int64)
+    flat = sub.to(torch.int32).reshape(-1)
+    L = a.shape[1]
+
+    def cost(k):
+        return flat[a[:, k, None] * 16 + b[None, :, k]]  # (M, N)
+
+    d_m2 = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.int32,
+                       device=a.device)
+    d_m1 = cost(0)
+    for k in range(1, L):
+        dk = d_m1 + cost(k)
+        swap = ((a[:, k, None] == b[None, :, k - 1])
+                & (a[:, k - 1, None] == b[None, :, k]))
+        dk = torch.where(swap, torch.minimum(dk, d_m2 + TRANSPOSE_COST), dk)
+        d_m2, d_m1 = d_m1, dk
+    return d_m1
+
+
+def _check_codes(*tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError("tensors on different devices: %s vs %s"
+                             % (t.device, dev))
+        if t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError("kernel A takes contiguous int32 tensors, got "
+                             "%s (contiguous=%s)" % (t.dtype,
+                                                     t.is_contiguous()))
+
+
+def _sub_i32(sub: torch.Tensor, device) -> torch.Tensor:
+    if sub.shape != (16, 16):
+        raise ValueError("cost matrix must be (16, 16), got %s"
+                         % (tuple(sub.shape),))
+    return sub.to(device=device, dtype=torch.int32).contiguous()
+
+
+def pair_distance(codes_a: torch.Tensor, codes_b: torch.Tensor,
+                  sub: torch.Tensor, out=None) -> torch.Tensor:
+    """(n_a, n_b) uint16 distances for all pairs (kernel A, all pairs).
+
+    codes_a: (n_a, L), codes_b: (n_b, L) int32 codes in 0..15; sub: (16, 16)
+    integer costs; out: an optional contiguous (n_a, n_b) uint16 tensor to
+    write.  CPU tensors run `dp_distance_tile`."""
+    if codes_a.dim() != 2 or codes_b.dim() != 2 \
+            or codes_a.shape[1] != codes_b.shape[1]:
+        raise ValueError("code shapes %s and %s do not pair" % (
+            tuple(codes_a.shape), tuple(codes_b.shape)))
+    n_a, L = codes_a.shape
+    n_b = codes_b.shape[0]
+    if out is None:
+        out = torch.empty((n_a, n_b), dtype=torch.uint16,
+                          device=codes_a.device)
+    elif (out.shape != (n_a, n_b) or out.dtype != torch.uint16
+          or out.device != codes_a.device or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous (%d, %d) uint16 tensor "
+                         "on %s" % (n_a, n_b, codes_a.device))
+    if codes_a.device.type == "cpu":
+        out.copy_(dp_distance_tile(codes_a, codes_b, sub).to(torch.uint16))
+        return out
+    if codes_a.device.type != "cuda":
+        raise ValueError("no kernel for device %s" % codes_a.device)
+    _check_codes(codes_a, codes_b)
+    if not 1 <= L <= MAX_L:
+        raise ValueError("code strings of length %d (kernel takes 1..%d)"
+                         % (L, MAX_L))
+    sub_d = _sub_i32(sub, codes_a.device)
+    _build.launch("iiv_editdist_tile",
+                  ctypes.c_void_p(codes_a.data_ptr()), n_a,
+                  ctypes.c_void_p(codes_b.data_ptr()), n_b, L,
+                  ctypes.c_void_p(sub_d.data_ptr()),
+                  ctypes.c_void_p(out.data_ptr()),
+                  ctypes.c_void_p(_build.stream_ptr(codes_a.device)))
+    pair_distance.launches += 1
+    return out
+
+
+pair_distance.launches = 0
+
+
+def dist_pairs_elementwise(pa: torch.Tensor, pb: torch.Tensor,
+                           sub: torch.Tensor) -> torch.Tensor:
+    """(...) int32 distances of elementwise (..., L) code pairs (kernel A,
+    elementwise).  CPU tensors run distance.dist_pixel_pairs_plain."""
+    if pa.shape != pb.shape:
+        raise ValueError("pair shapes differ: %s vs %s"
+                         % (tuple(pa.shape), tuple(pb.shape)))
+    if pa.device.type == "cpu":
+        from iivision_tpu_torch.ops.distance import dist_pixel_pairs_plain
+
+        return dist_pixel_pairs_plain(pa, pb, sub)
+    if pa.device.type != "cuda":
+        raise ValueError("no kernel for device %s" % pa.device)
+    pa = pa.to(torch.int32).contiguous()
+    pb = pb.to(torch.int32).contiguous()
+    _check_codes(pa, pb)
+    L = pa.shape[-1]
+    if not 1 <= L <= MAX_L:
+        raise ValueError("code strings of length %d (kernel takes 1..%d)"
+                         % (L, MAX_L))
+    sub_d = _sub_i32(sub, pa.device)
+    out = torch.empty(pa.shape[:-1], dtype=torch.int32, device=pa.device)
+    _build.launch("iiv_dist_pairs", ctypes.c_void_p(pa.data_ptr()),
+                  ctypes.c_void_p(pb.data_ptr()), out.numel(), L,
+                  ctypes.c_void_p(sub_d.data_ptr()),
+                  ctypes.c_void_p(out.data_ptr()),
+                  ctypes.c_void_p(_build.stream_ptr(pa.device)))
+    dist_pairs_elementwise.launches += 1
+    return out
+
+
+dist_pairs_elementwise.launches = 0
+
+
+def lane_codes(mode: VideoMode, lane: int, device) -> torch.Tensor:
+    """(2^B, L) int32 colour codes of every masked value of a lane."""
+    return torch.as_tensor(lane_pixel_codes(mode, lane).astype(np.int32),
+                           device=device)
+
+
+def cost_matrix(palette: Palette, device) -> torch.Tensor:
+    """(16, 16) int32 CIE2000 substitution costs."""
+    return torch.as_tensor(substitute_matrix(palette).astype(np.int32),
+                           device=device)
+
+
+def edit_distance_matrix(mode: VideoMode, palette: Palette, lane: int,
+                         device, out=None) -> torch.Tensor:
+    """Full (N, N) uint16 distance matrix of one lane, N = 2^MASKED_BITS."""
+    codes = lane_codes(mode, lane, device)
+    return pair_distance(codes, codes, cost_matrix(palette, device), out)
+
+
+def build_tables(mode: VideoMode, palette: Palette,
+                 device) -> torch.Tensor:
+    """(n_lanes, N*N) uint16 LUTs of a video mode on `device`, indexed by
+    (src << MASKED_BITS) + tgt (iivision_tpu.ops.editdist.build_tables).
+    Each lane's kernel launch writes straight into its slice."""
+    spec = spec_for_mode(mode)
+    n = 1 << spec.MASKED_BITS
+    out = torch.empty((spec.N_LANES, n, n), dtype=torch.uint16,
+                      device=device)
+    for lane in range(spec.N_LANES):
+        edit_distance_matrix(mode, palette, lane, device, out[lane])
+    return out.reshape(spec.N_LANES, n * n)

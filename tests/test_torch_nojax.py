@@ -1,0 +1,75 @@
+"""iivision_tpu_torch needs no JAX: its entry points import, and a tiny
+encode runs, in a process where importing jax fails."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CHILD = r"""
+import sys
+
+
+class BlockJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError("jax is blocked in this process")
+        return None
+
+
+sys.meta_path.insert(0, BlockJax())
+
+import numpy as np
+
+import iivision_tpu_torch
+import iivision_tpu_torch.cli
+import iivision_tpu_torch.make_tables
+from iivision_tpu_torch import encoder
+from iivision_tpu_torch.movie import Movie
+from iivision_tpu_torch.ops import distance
+from iivision_tpu.palettes import Palette
+from iivision_tpu.video_mode import VideoMode
+
+mode = VideoMode.DHGR
+dist = distance.ComputedDistance(mode, Palette.NTSC, device="cpu")
+rng = np.random.RandomState(0)
+fmain = rng.randint(0, 0x80, (1, 32, 256)).astype(np.uint8)
+faux = rng.randint(0, 0x80, (1, 32, 256)).astype(np.uint8)
+plan, _ = encoder.plan_movie(
+    n_frames=1, n_audio_ticks=300, input_frame_rate=30.0,
+    ticks_per_second=14700.0, every_n_video_frames=1, mode=mode, k=8)
+lanes, bytes_tgt = encoder.prepare_targets(fmain, faux, mode, "cpu")
+ops, main, aux = encoder.encode_movie(dist, lanes, bytes_tgt, plan, mode,
+                                      seed=0)
+flat = encoder.flatten_ops(ops.numpy(), plan)
+assert flat.shape == (plan.n_ops, 6) and plan.n_ops > 0
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+# the compile-cache opt-out was set only while the shared package loaded
+import os
+assert "IIVISION_NO_COMPILE_CACHE" not in os.environ
+print("no-jax ok", plan.n_ops)
+"""
+
+
+def test_port_runs_without_jax():
+    env = dict(os.environ)
+    env.pop("IIVISION_NO_COMPILE_CACHE", None)  # the port sets it itself
+    proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "no-jax ok" in proc.stdout
+
+
+def test_port_sources_do_not_import_jax():
+    pkg = os.path.join(REPO, "iivision_tpu_torch")
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(root, name)) as f:
+                    text = f.read()
+                assert "import jax" not in text and "from jax" not in text, \
+                    name
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        text = f.read()
+    assert "import jax" not in text and "from jax" not in text

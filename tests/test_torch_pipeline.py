@@ -1,0 +1,126 @@
+"""iivision_tpu_torch end to end on the CPU: Movie against the JAX
+package's Movie, the FFT resample against the JAX one, and the CLI."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from iivision_tpu import audio as jaudio
+from iivision_tpu.movie import Movie as JaxMovie
+from iivision_tpu.sim import PlayerVM
+from iivision_tpu.video_mode import VideoMode
+from iivision_tpu_torch import audio as taudio
+from iivision_tpu_torch import cli
+from iivision_tpu_torch.movie import Movie
+
+from tests.test_encoder import get_dist
+from tests.test_pipeline import gradient_movie
+
+
+def check_stream(data, movie, levels):
+    """The player VM decodes the stream, its duty cycles are the audio
+    levels and its final screens are the encoder's model (except the
+    padding op's cell)."""
+    res = PlayerVM().decode(data)
+    assert res.ok, (res.error, res.error_pos)
+    assert res.n_ops == movie.plan.n_ops
+    assert np.array_equal(res.duty, levels[:movie.plan.n_ops] * 2 + 34)
+    for vm, model in ((res.main, movie.final_main),
+                      (res.aux, movie.final_aux)):
+        eq = vm == np.asarray(model).astype(np.uint8)
+        eq[0, 0] = True
+        assert eq.all(), np.argwhere(~eq)[:5]
+
+
+def test_movie_matches_jax_movie(tmp_path):
+    """A 4-frame gradient clip with 14,700 Hz audio (levels need no
+    resample, so they are exact) gives a byte-identical .a2m through both
+    packages' Movie."""
+    rgb = gradient_movie(F=4)
+    tone = (np.sin(2 * np.pi * 440 * np.arange(4410) / 4410)
+            * 16000).astype(np.float32)
+    kw = dict(frames_source=rgb, every_n_video_frames=2, k=8, seed=0)
+    jm = JaxMovie(audio_source=jaudio.Audio(data=tone, rate=14700,
+                                            bitrate=14700),
+                  dist=get_dist(VideoMode.DHGR), **kw)
+    tm = Movie(audio_source=taudio.Audio(data=tone, rate=14700,
+                                         bitrate=14700, device="cpu"),
+               device="cpu", **kw)
+    p_jax, p_torch = str(tmp_path / "jax.a2m"), str(tmp_path / "torch.a2m")
+    jm.transcode(p_jax)
+    stats = tm.transcode(p_torch)
+    data = open(p_torch, "rb").read()
+    assert data == open(p_jax, "rb").read()
+    assert stats["n_ops"] == tm.plan.n_ops == jm.plan.n_ops
+    assert np.array_equal(tm.final_main, np.asarray(jm.final_main))
+    assert np.array_equal(tm.final_aux, np.asarray(jm.final_aux))
+    check_stream(data, tm, tm.audio.levels())
+
+
+def test_resample_fft_matches_jax():
+    """torch.fft against jnp.fft on 1 s of 44.1 kHz audio resampled to
+    14,700 Hz.  complex64 FFTs in two libraries sum in different orders,
+    so samples agree to 1e-3 of the peak; levels are truncated integers,
+    so at most 0.1% of them may differ, each by at most 1."""
+    rng = np.random.RandomState(0)
+    t = np.arange(44100) / 44100.0
+    x = (np.sin(2 * np.pi * 440 * t) * 9000 + np.sin(2 * np.pi * 3100 * t)
+         * 4000 + rng.randn(44100) * 800).astype(np.float32)
+    ref = np.asarray(jaudio.resample_fft(x, 44100, 14700))
+    got = taudio.resample_fft(x, 44100, 14700, "cpu").numpy()
+    assert got.shape == ref.shape == (14700,)
+    assert got.dtype == np.float32
+    assert np.abs(got - ref).max() <= 1e-3 * np.abs(ref).max()
+
+    lv_ref = jaudio.Audio(data=x, rate=44100, bitrate=14700).levels()
+    lv = taudio.Audio(data=x, rate=44100, bitrate=14700,
+                      device="cpu").levels()
+    assert lv.shape == lv_ref.shape
+    diff = np.abs(lv.astype(np.int64) - lv_ref)
+    assert diff.max() <= 1
+    assert np.count_nonzero(diff) <= 0.001 * len(lv)
+
+
+@pytest.mark.parametrize("extra,flag", [
+    (["b.npy"], "several inputs"),
+    (["--mesh", "2"], "--mesh"),
+    (["--chunk_frames", "64"], "--chunk_frames"),
+    (["--joint_content"], "--joint_content"),
+    (["--colour_model", "yiq"], "--colour_model"),
+    (["--colour_model", "mono"], "--colour_model"),
+    (["--video_mode", "HGR"], "--video_mode HGR"),
+])
+def test_cli_refuses_unported_flags(capsys, extra, flag):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["a.npy"] + extra + ["--device", "cpu"])
+    assert e.value.code == 2
+    err = capsys.readouterr().err
+    assert flag in err and "ROADMAP.md" in err
+
+
+def test_cli_cuda_without_a_card_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    clip = str(tmp_path / "clip.npy")
+    np.save(clip, gradient_movie(F=2))
+    with pytest.raises(RuntimeError, match="is_available"):
+        cli.main([clip, "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="is_available"):
+        Movie(frames_source=gradient_movie(F=2), device="cuda")
+
+
+def test_cli_transcodes_on_cpu(tmp_path, capsys):
+    clip = str(tmp_path / "clip.npy")
+    np.save(clip, gradient_movie(F=6))
+    out = str(tmp_path / "clip.a2m")
+    stats_path = str(tmp_path / "stats.json")
+    cli.main([clip, "--device", "cpu", "--output", out, "--k", "16", "--j",
+              "4", "--stats_json", stats_path])
+    assert "Wrote %s" % out in capsys.readouterr().out
+    stats = json.load(open(stats_path))[0]
+    assert stats["device"] == "cpu" and stats["n_ops"] > 0
+    res = PlayerVM().decode(open(out, "rb").read())
+    assert res.ok and res.n_ops == stats["n_ops"]
+    assert os.path.getsize(out) % 2048 == 0
