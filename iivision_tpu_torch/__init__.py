@@ -1,5 +1,6 @@
-"""ii-vision on PyTorch + CUDA: the DHGR transcode and LUT generation for
-one NVIDIA H100, beside the JAX package `iivision_tpu`.
+"""ii-vision on PyTorch + CUDA: the DHGR and HGR transcode (window, yiq and
+mono colour models), LUT and store-cost generation and the sub-op
+microbenchmark for one NVIDIA H100, beside the JAX package `iivision_tpu`.
 
 The JAX package is the reference this package is held against.  Modules
 that never touch JAX are imported from it, not copied: the stream ABI
@@ -9,12 +10,14 @@ the host ingest path of `frames` and the audio decoding of `audio.Audio`.
 What runs through `jax` there is written here in torch:
 
 - `screen`: masked-lane derivation (exact int32);
-- `ops.distance`: lane pixels, the diagonal Damerau-Levenshtein diff and
-  the shipped store-cost tables;
+- `ops.distance`: lane pixels, the diagonal Damerau-Levenshtein diff, the
+  yiq window sums and the store-cost tables (loaded or built);
+- `ops.yiq`: the yiq model's window codes;
 - `ops.editdist`: all-pairs edit-distance tiles (kernel A, CUDA);
 - `ops.random`: threefry2x32 nonces, bit-equal to `jax.random`;
 - `ops.subop`: the encoder's sequential sub-op chain (kernel B, CUDA);
-- `encoder`, `audio`, `movie`, `cli`, `make_tables`.
+- `ops.subop_bench`: the sub-op microbenchmark's math (kernel C, CUDA);
+- `encoder`, `audio`, `movie`, `cli`, `make_tables`, `bench_subop`.
 
 Device policy: every function that allocates takes an explicit `device`;
 nothing here guesses one.  A CUDA tensor runs the hand-written kernels and

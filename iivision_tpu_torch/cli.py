@@ -20,14 +20,9 @@ _NOT_PORTED = [
      "Queue 1: 'batch encode'"),
     ("--mesh", lambda a: a.mesh is not None, "Queue 1: 'batch encode'"),
     ("--chunk_frames", lambda a: a.chunk_frames is not None,
-     "Queue 1: 'HGR, yiq, mono and joint in the encoder' (chunked and "
-     "streaming long movies)"),
+     "Queue 1: 'chunked and streaming long-movie encoders'"),
     ("--joint_content", lambda a: a.joint_content,
-     "Queue 1: 'HGR, yiq, mono and joint in the encoder'"),
-    ("--colour_model yiq|mono", lambda a: a.colour_model != "window",
-     "Queue 1: 'HGR, yiq, mono and joint in the encoder'"),
-    ("--video_mode HGR", lambda a: a.video_mode != VideoMode.DHGR.name,
-     "Queue 1: 'HGR, yiq, mono and joint in the encoder'"),
+     "Queue 1: 'joint content'"),
 ]
 
 
@@ -55,10 +50,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--palette", type=str,
                    choices=[pl.name for pl in Palette if pl.value >= 0],
                    default=Palette.NTSC.name)
-    p.add_argument("--dither", type=str, default="ordered",
+    p.add_argument("--dither", type=str, default=None,
                    choices=["ordered", "buckels", "floyd", "atkinson",
                             "jarvis", "mono"],
-                   help="Frame quantization dither (host C++ / numpy).")
+                   help="Frame quantization dither (host C++ / numpy); "
+                        "default: mono for --colour_model mono, else "
+                        "ordered.")
     p.add_argument("--k", type=int, default=8,
                    help="Pages selected per encoder step.")
     p.add_argument("--j", type=int, default=1,
@@ -69,7 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Not ported yet.")
     p.add_argument("--colour_model", type=str, default="window",
                    choices=["window", "yiq", "mono"],
-                   help="Perceptual basis; only 'window' is ported.")
+                   help="Perceptual basis: 'window' (the reference's "
+                        "nominal colours), 'yiq' (NTSC composite) or "
+                        "'mono' (dot-level Hamming).")
     p.add_argument("--chunk_frames", type=int, default=None,
                    help="Not ported yet.")
     p.add_argument("--mesh", default=None, help="Not ported yet.")
@@ -85,6 +84,9 @@ def main(args=None):
         if used(args):
             parser.error("%s is not ported to iivision_tpu_torch yet "
                          "(ROADMAP.md %s)" % (flag, item))
+    if args.dither is None:
+        # the mono colour model pairs with the 1-bit mono quantizer
+        args.dither = "mono" if args.colour_model == "mono" else "ordered"
     from iivision_tpu_torch.movie import Movie
 
     path = args.input[0]
@@ -103,6 +105,7 @@ def main(args=None):
         j=args.j,
         seed=args.seed,
         frame_rate=args.frame_rate,
+        colour_model=args.colour_model,
     )
     print("Palette %s" % args.palette)
     print("Input frame rate = %f" % m.frames.input_frame_rate)

@@ -1,10 +1,11 @@
-"""The whole-movie DHGR encoder as an eager torch loop (counterpart of
+"""The whole-movie encoder as an eager torch loop (counterpart of
 iivision_tpu/encoder.py `_build_encode_scan` / `encode_movie`).
 
 The JAX encoder is one XLA scan over chunk bodies and their steps; this is
 the same computation written as Python loops over the same plan
 (`plan_movie`, shared).  Per (frame, bank) chunk start it recomputes the
-active bank's diff through kernel A and refreshes the priorities; per step
+active bank's diff (through kernel A; the yiq model's window sums are a
+torch gather) and refreshes the priorities; per step
 it picks the k busiest pages (a stable sort: ties go to the lower page, as
 `lax.top_k` orders them), extracts their rows with `index_select`, runs
 the j sub-ops through kernel B and writes the rows back with
@@ -20,8 +21,9 @@ split fetches and the `diag` ablations.  One whole-movie encode serves
 every length; the JAX package's chunked and streaming encoders exist for
 TPU memory bounds and are bit-identical to its unchunked one.
 
-Only the DHGR mode with the window colour model and the default content
-rule is ported; the others raise and are listed in ROADMAP.md.
+DHGR and HGR, with the window, yiq and mono colour models (the model rides
+in the distance provider's `sub` and store-cost table), are ported; joint
+content selection is not (ROADMAP.md).
 """
 
 from typing import Optional
@@ -31,57 +33,81 @@ import torch
 
 from iivision_tpu.encoder import (  # noqa: F401
     OP_FIELDS, MoviePlan, flatten_ops, plan_movie)
-from iivision_tpu.screen import DHGR, SCREEN_HOLES
+from iivision_tpu.screen import SCREEN_HOLES, spec_for_mode
 from iivision_tpu.video_mode import VideoMode
 
 from iivision_tpu_torch import screen
-from iivision_tpu_torch.ops import distance, subop
+from iivision_tpu_torch.ops import distance, subop, yiq
 from iivision_tpu_torch.ops import random as trandom
 
 # encoder steps whose nonces are drawn in one vectorised call
 NONCE_BLOCK_STEPS = 256
 
 
-def require_dhgr(mode: VideoMode):
-    if mode != VideoMode.DHGR:
-        raise NotImplementedError(
-            "video mode %s is not ported yet (ROADMAP.md Queue 1: 'HGR, "
-            "yiq, mono and joint in the encoder')" % mode.name)
+def n_banks(mode: VideoMode) -> int:
+    """Screen banks the encoder keeps: main and aux for DHGR, main for HGR."""
+    return 2 if mode == VideoMode.DHGR else 1
+
+
+def bank_lanes(mode: VideoMode, bank: int):
+    """(even, odd) page offsets' lane indices of a bank."""
+    return spec_for_mode(mode).bank_lanes(bank == 1)
+
+
+def masked_lanes(banks: torch.Tensor, mode: VideoMode) -> torch.Tensor:
+    """(n_banks, 32, 256) screen bytes -> (32, 128, n_lanes) int32 lanes."""
+    if mode == VideoMode.DHGR:
+        return screen.dhgr_masked_lanes(banks[0], banks[1])
+    return screen.hgr_masked_lanes(banks[0])
 
 
 def prepare_targets(frames_main, frames_aux, mode: VideoMode, device):
-    """Per-frame encoder targets from (F, 32, 256) uint8 screen banks.
+    """Per-frame encoder targets from (F, 32, 256) uint8 screen banks
+    (frames_aux is None for HGR).
 
-    Returns (lanes_tgt (F, 32, 128, 4) int32, bytes_tgt (F, 2, 32, 256)
-    int32) on `device`."""
-    require_dhgr(mode)
+    Returns (lanes_tgt (F, 32, 128, n_lanes) int32, bytes_tgt
+    (F, 2, 32, 256) int32) on `device`; HGR stacks its one bank twice, as
+    the JAX package does."""
     main = torch.as_tensor(np.asarray(frames_main), device=device)
-    aux = torch.as_tensor(np.asarray(frames_aux), device=device)
-    lanes = screen.dhgr_masked_lanes(main, aux)
+    if mode == VideoMode.DHGR:
+        aux = torch.as_tensor(np.asarray(frames_aux), device=device)
+        lanes = screen.dhgr_masked_lanes(main, aux)
+    else:
+        aux = main
+        lanes = screen.hgr_masked_lanes(main)
     bytes_tgt = torch.stack([main.to(torch.int32), aux.to(torch.int32)],
                             dim=1)
     return lanes, bytes_tgt
 
 
-def diff_bank(cur_lanes, tgt_lanes, bank: int, sub) -> torch.Tensor:
-    """Diagonal-DP diff of the active bank's two lanes, (32, 256) int32
-    in page-offset order: 2 x 32 x 128 elementwise pairs in one kernel A
-    call (iivision_tpu/encoder.py diff_bank)."""
-    le, lo = DHGR.bank_lanes(bank == 1)
-    mode = VideoMode.DHGR
-    pa = torch.stack([distance.lane_pixels(cur_lanes[..., le], mode, le),
-                      distance.lane_pixels(cur_lanes[..., lo], mode, lo)])
-    pb = torch.stack([distance.lane_pixels(tgt_lanes[..., le], mode, le),
-                      distance.lane_pixels(tgt_lanes[..., lo], mode, lo)])
-    d2 = distance.dist_pixel_pairs(pa, pb, sub)
+def diff_bank(cur_lanes, tgt_lanes, bank: int, sub,
+              mode: VideoMode) -> torch.Tensor:
+    """Diff of the active bank's two lanes, (32, 256) int32 in page-offset
+    order (iivision_tpu/encoder.py diff_bank): both lanes in one distance
+    call, 2 x 32 x 128 elementwise pairs - kernel A for the window and mono
+    models, the window gather-sum for yiq (a 4-D `sub`)."""
+    lanes = bank_lanes(mode, bank)
+    if sub.dim() == 4:
+        wa = torch.stack([yiq.lane_windows(cur_lanes[..., l], mode, l)
+                          for l in lanes])
+        wb = torch.stack([yiq.lane_windows(tgt_lanes[..., l], mode, l)
+                          for l in lanes])
+        d2 = distance.dist_window_sums_sub2(wa, wb, sub[list(lanes)])
+    else:
+        pa = torch.stack([distance.lane_pixels(cur_lanes[..., l], mode, l)
+                          for l in lanes])
+        pb = torch.stack([distance.lane_pixels(tgt_lanes[..., l], mode, l)
+                          for l in lanes])
+        d2 = distance.dist_pixel_pairs(pa, pb, sub)
     return screen.interleave_bank_lanes(d2[0], d2[1])
 
 
-def sc_row_index(tgt_lanes, bank: int, n_values: int) -> torch.Tensor:
+def sc_row_index(tgt_lanes, bank: int, n_values: int,
+                 mode: VideoMode) -> torch.Tensor:
     """(32, 256) int32: the store-cost table row each page offset reads -
     lane * R + target lane value, even offsets on the bank's first lane,
     odd offsets on its second (the rows of the JAX encoder's slab)."""
-    le, lo = DHGR.bank_lanes(bank == 1)
+    le, lo = bank_lanes(mode, bank)
     return screen.interleave_bank_lanes(
         le * n_values + tgt_lanes[..., le],
         lo * n_values + tgt_lanes[..., lo]).to(torch.int32).contiguous()
@@ -94,9 +120,8 @@ def encode_movie(dist, lanes_tgt, bytes_tgt, plan: MoviePlan,
     dist: a distance.ComputedDistance on the same device.
     seed=None disables random tie-breaks (deterministic, for testing).
     Returns (ops (S, K*J, 6) uint8, final main (32, 256) int32, final aux)
-    as tensors on the device.
+    as tensors on the device; for HGR the final aux is the main bank.
     """
-    require_dhgr(mode)
     dev = lanes_tgt.device
     if dist.device != dev or bytes_tgt.device != dev:
         raise ValueError("targets on %s, distance model on %s"
@@ -115,7 +140,8 @@ def encode_movie(dist, lanes_tgt, bytes_tgt, plan: MoviePlan,
     table = dist.store_cost16.reshape(-1, C)
     holes = torch.as_tensor((~SCREEN_HOLES).astype(np.int32), device=dev)
 
-    zero = torch.zeros((2, 32, 256), dtype=torch.int32, device=dev)
+    zero = torch.zeros((n_banks(mode), 32, 256), dtype=torch.int32,
+                       device=dev)
     banks, up, dw = zero.clone(), zero.clone(), zero.clone()
     # every record starts as the padding op (page 32, the active bank's
     # target byte at (0, 0), zero offsets); steps run overwrite theirs
@@ -133,14 +159,14 @@ def encode_movie(dist, lanes_tgt, bytes_tgt, plan: MoviePlan,
         frame, bank = int(sf[b0]), int(sb[b0])
         tl = lanes_tgt[frame]
         if sr[b0]:
-            cur = screen.dhgr_masked_lanes(banks[0], banks[1])
-            d = diff_bank(cur, tl, bank, dist.sub) * holes
+            d = diff_bank(masked_lanes(banks, mode), tl, bank, dist.sub,
+                          mode) * holes
             up[bank] = torch.where(d == 0, 0, up[bank]) + d
             dw[bank] = d
         # body state, float32: [up, dw, by, tb] rows of the active bank
         st = torch.stack([up[bank], dw[bank], banks[bank],
                           bytes_tgt[frame, bank]], dim=1).to(torch.float32)
-        sc_rows = sc_row_index(tl, bank, n_values)
+        sc_rows = sc_row_index(tl, bank, n_values, mode)
         for s in range(b0, b0 + Sc):
             nvalid = int(sn[s])
             if nvalid == 0:
@@ -166,4 +192,5 @@ def encode_movie(dist, lanes_tgt, bytes_tgt, plan: MoviePlan,
         up[bank] = st[:, 0].to(torch.int32)
         dw[bank] = st[:, 1].to(torch.int32)
         banks[bank] = st[:, 2].to(torch.int32)
-    return ops.reshape(S, k * j, OP_FIELDS), banks[0], banks[1]
+    # HGR's one bank is both main and aux, as the JAX encoder returns it
+    return ops.reshape(S, k * j, OP_FIELDS), banks[0], banks[-1]

@@ -1,9 +1,10 @@
 """Single-movie transcoder on a torch device (counterpart of
-iivision_tpu/movie.py, solo path).
+iivision_tpu/movie.py, solo path), DHGR or HGR, with the window, yiq or
+mono colour model.
 
-Host ingest (`frames.ingest`: decode, C++ resize, ordered-dither quantize
-and pack), the opcode plan, op flattening and stream emission are the JAX
-package's own, shared; the encode and the audio resample run here on
+Host ingest (`frames.ingest`: decode, C++ resize, quantize and pack), the
+opcode plan, op flattening and stream emission are the JAX package's own,
+shared; the encode and the audio resample run here on
 `device`.  The final screens are kept for playback verification.
 """
 
@@ -41,9 +42,9 @@ class Movie:
             frames_source=None,
             audio_source=None,
             frame_rate: Optional[float] = None,
+            colour_model: str = "window",
     ):
         self.device = require_device(device)
-        encoder.require_dhgr(video_mode)
         self.every_n_video_frames = every_n_video_frames
         self.max_bytes_out = max_bytes_out
         self.video_mode = video_mode
@@ -82,6 +83,7 @@ class Movie:
 
         t0 = time.time()
         self.dist = distance.ComputedDistance(video_mode, palette,
+                                              colour_model,
                                               device=self.device)
         self.timings["tables_s"] = time.time() - t0
 
@@ -103,9 +105,11 @@ class Movie:
             raise ValueError("plan needs %d encoded frames, ingest gave %d"
                              % (n_use, len(self.frames.targets_main)))
         t0 = time.time()
+        aux = self.frames.targets_aux
         lanes, bytes_tgt = encoder.prepare_targets(
             self.frames.targets_main[:n_use],
-            self.frames.targets_aux[:n_use], self.video_mode, self.device)
+            None if aux is None else aux[:n_use], self.video_mode,
+            self.device)
         ops, fin_main, fin_aux = encoder.encode_movie(
             self.dist, lanes, bytes_tgt, plan, self.video_mode,
             seed=self.seed)

@@ -6,20 +6,37 @@ iivision_tpu/ops/distance.py).
   pixel-code strings, elementwise.  Its plain form is the recurrence
   written directly, indexing `sub[a, b]`; on a CUDA tensor it is kernel A's
   elementwise entry (ops/editdist.py `dist_pairs_elementwise`).
-- `store_cost_table`: the shipped int16-exact store-cost tables.
-- `ComputedDistance`: what the encoder holds per (mode, palette).
+- `dist_window_sums(_sub2)`: the yiq model's per-position pair costs,
+  summed (a gather-sum; the JAX package's one-hot einsum is XLA, not
+  Pallas).
+- `dist_lane_pairs`: either of the two, chosen by the rank of `sub` as in
+  the JAX package: (16, 16) is the window (or mono) edit distance,
+  (n_lanes, L, 128, 128) the yiq sums.
+- `build_store_cost` / `store_cost_table`: the int16 store-cost tables,
+  loaded from the package's shipped npz files or the user cache, or built
+  and saved there.
+- `ComputedDistance`: what the encoder holds per (mode, palette, model).
+
+Every distance is an integer below 2^16, so int32 here equals the JAX
+package's float32 exactly.
 """
+
+import os
 
 import numpy as np
 import torch
 
 from iivision_tpu.ops.distance import (  # noqa: F401
-    n_contents, store_cost_path, sub16)
+    _user_cache_dir, n_contents, save_store_cost, store_cost_path, sub16,
+    sub16_mono)
 from iivision_tpu.palettes import Palette
 from iivision_tpu.screen import hgr_to_dots, spec_for_mode
 from iivision_tpu.video_mode import VideoMode
 
 TRANSPOSE_COST = 1
+# (t, c) pairs per distance call in the store-cost build: one call per
+# DHGR lane, four per HGR lane; bounds the (pairs, L) code transients
+BUILD_PAIRS = 1 << 20
 
 
 def lane_pixels(vals: torch.Tensor, mode: VideoMode,
@@ -77,37 +94,114 @@ def dist_pixel_pairs(pa: torch.Tensor, pb: torch.Tensor,
     return editdist.dist_pairs_elementwise(pa, pb, sub)
 
 
+def dist_window_sums(wa: torch.Tensor, wb: torch.Tensor,
+                     subs: torch.Tensor) -> torch.Tensor:
+    """Per-position pair costs summed (yiq model: no alignment DP).
+
+    wa, wb: (..., L) 7-bit window codes; subs: (L, 128, 128) integer costs.
+    Returns (...) int32: sum over k of subs[k, wa_k, wb_k]."""
+    L = subs.shape[0]
+    pos = torch.arange(L, dtype=torch.int64, device=wa.device) * (128 * 128)
+    idx = pos + wa.to(torch.int64) * 128 + wb.to(torch.int64)
+    return subs.to(torch.int32).reshape(-1)[idx].sum(-1, dtype=torch.int32)
+
+
+def dist_window_sums_sub2(wa: torch.Tensor, wb: torch.Tensor,
+                          subs2: torch.Tensor) -> torch.Tensor:
+    """`dist_window_sums` with a leading stack axis carrying its own subs.
+
+    wa, wb: (S, ..., L) window codes; subs2: (S, L, 128, 128) costs."""
+    return torch.stack([dist_window_sums(a, b, s)
+                        for a, b, s in zip(wa, wb, subs2)])
+
+
 def dist_lane_pairs(va: torch.Tensor, vb: torch.Tensor, mode: VideoMode,
                     lane: int, sub: torch.Tensor) -> torch.Tensor:
-    """Distance between masked-lane value arrays (elementwise pairs),
-    window colour model."""
+    """Distance between masked-lane value arrays (elementwise pairs).
+
+    The cost basis rides in `sub`'s rank: (16, 16) selects the windowed
+    colour (or mono) edit distance, (n_lanes, L, 128, 128) the yiq model."""
+    if sub.dim() == 4:
+        from iivision_tpu_torch.ops import yiq
+
+        return dist_window_sums(yiq.lane_windows(va, mode, lane),
+                                yiq.lane_windows(vb, mode, lane), sub[lane])
     return dist_pixel_pairs(lane_pixels(va, mode, lane),
                             lane_pixels(vb, mode, lane), sub)
 
 
 def sub_for(mode: VideoMode, palette: Palette,
             model: str = "window") -> np.ndarray:
-    """(16, 16) float32 cost basis.  Only the window model is ported."""
+    """float32 cost basis for `model`: 'window' (the reference's nominal
+    colours), 'yiq' (NTSC composite) or 'mono' (dot-level Hamming)."""
+    if model == "yiq":
+        from iivision_tpu.ops import yiq
+
+        return yiq.lane_subs(mode, palette)
+    if model == "mono":
+        return sub16_mono()
     if model != "window":
-        raise NotImplementedError(
-            "colour model %r is not ported yet (ROADMAP.md Queue 1: "
-            "'HGR, yiq, mono and joint in the encoder')" % (model,))
+        raise ValueError("unknown colour model: %r" % (model,))
     return sub16(palette)
 
 
+def store_cost_rows(mode: VideoMode, lane: int, t: torch.Tensor,
+                    sub: torch.Tensor) -> torch.Tensor:
+    """(len(t), C) int32: the cost of storing each content byte c over
+    target lane values t, D(masked_update(t, c), t)."""
+    spec = spec_for_mode(mode)
+    c = torch.arange(n_contents(mode), dtype=torch.int32,
+                     device=t.device)[None, :]
+    t = t.to(torch.int32)[:, None]
+    if mode == VideoMode.DHGR:
+        new = spec.masked_update(t, c)
+    else:
+        new = spec.masked_update(t, c, lane)
+    return dist_lane_pairs(new, t.expand_as(new), mode, lane, sub)
+
+
+def build_store_cost(mode: VideoMode, palette: Palette,
+                     model: str = "window", device="cpu") -> torch.Tensor:
+    """(n_lanes, 2^B, C) int32 store costs built on `device`
+    (iivision_tpu.ops.distance._build_store_cost).  The window and mono
+    models run kernel A's elementwise entry on a card and the plain
+    recurrence on the CPU; yiq runs the window gather-sums."""
+    spec = spec_for_mode(mode)
+    n = 1 << int(spec.MASKED_BITS)
+    chunk = min(n, BUILD_PAIRS // n_contents(mode))
+    sub = torch.as_tensor(sub_for(mode, palette, model).astype(np.int32),
+                          device=device)
+    out = torch.empty((int(spec.N_LANES), n, n_contents(mode)),
+                      dtype=torch.int32, device=device)
+    for lane in range(int(spec.N_LANES)):
+        for t0 in range(0, n, chunk):
+            t = torch.arange(t0, t0 + chunk, dtype=torch.int32,
+                             device=device)
+            out[lane, t0:t0 + chunk] = store_cost_rows(mode, lane, t, sub)
+    return out
+
+
 def store_cost_table(mode: VideoMode, palette: Palette,
-                     model: str = "window") -> np.ndarray:
-    """(n_lanes, 2^B, n_contents) int16 store costs from the package's
-    shipped artifact.  Building a missing table is not ported: a miss
-    raises."""
-    path = store_cost_path(mode, palette, model)
-    try:
-        cost = np.load(path)["cost"]
-    except FileNotFoundError:
-        raise FileNotFoundError(
-            "no shipped store-cost table %s; building one is not ported "
-            "yet (ROADMAP.md Queue 1: 'the torch _build_store_cost')"
-            % path) from None
+                     model: str = "window", device="cpu") -> np.ndarray:
+    """(n_lanes, 2^B, n_contents) int16 store costs.
+
+    Searches the package's shipped tables, then the user cache; on a miss
+    builds the table on `device` and saves it to the user cache (the npz
+    layout the JAX package reads and writes, so either package's tables
+    serve both).  float32 tables (yiq) go to int16 by truncation toward
+    zero, as the JAX encoder's `astype(int16)` does."""
+    for d in (None, _user_cache_dir()):
+        path = store_cost_path(mode, palette, model, d)
+        if os.path.exists(path):
+            cost = np.load(path)["cost"]
+            break
+    else:
+        cost = build_store_cost(mode, palette, model, device).cpu().numpy()
+        try:
+            save_store_cost(cost.astype(np.float32), mode, palette, model,
+                            _user_cache_dir())
+        except OSError:
+            pass  # read-only home: rebuild next process
     if cost.max() >= 1 << 15:
         raise ValueError("store costs overflow int16: max %d" % cost.max())
     return cost.astype(np.int16)
@@ -115,7 +209,8 @@ def store_cost_table(mode: VideoMode, palette: Palette,
 
 class ComputedDistance:
     """Distance provider for the torch encoder: the int16 store-cost table
-    and the (16, 16) cost basis, resident on `device`."""
+    and the int32 cost basis ((16, 16), or (n_lanes, L, 128, 128) for
+    yiq), resident on `device`."""
 
     def __init__(self, mode: VideoMode, palette: Palette,
                  model: str = "window", *, device):
@@ -128,4 +223,5 @@ class ComputedDistance:
             sub_for(mode, palette, model).astype(np.int32),
             device=self.device)
         self.store_cost16 = torch.as_tensor(
-            store_cost_table(mode, palette, model), device=self.device)
+            store_cost_table(mode, palette, model, self.device),
+            device=self.device)

@@ -1,5 +1,8 @@
 """iivision_tpu_torch screen lanes and distance model against the JAX
-package: the same numpy-seeded inputs through both, exact equality."""
+package: the same numpy-seeded inputs through both, exact equality.  Covers
+the window, yiq and mono bases and the store-cost build."""
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -8,10 +11,12 @@ import torch
 
 from iivision_tpu import screen as jscreen
 from iivision_tpu.ops import distance as jdist
+from iivision_tpu.ops import yiq as jyiq
 from iivision_tpu.palettes import Palette
 from iivision_tpu.video_mode import VideoMode
 from iivision_tpu_torch import screen
 from iivision_tpu_torch.ops import distance, editdist, subop
+from iivision_tpu_torch.ops import yiq as tyiq
 
 MODES = [VideoMode.DHGR, VideoMode.HGR]
 
@@ -118,8 +123,118 @@ def test_store_cost_table_matches_jax():
 
 
 def test_unported_models_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        distance.sub_for(VideoMode.DHGR, Palette.NTSC, "yiq")
+    with pytest.raises(ValueError, match="unknown colour model"):
+        distance.sub_for(VideoMode.DHGR, Palette.NTSC, "lab")
+
+
+@pytest.mark.parametrize("model", ["window", "yiq", "mono"])
+def test_sub_for_matches_jax(model):
+    for mode in MODES:
+        got = distance.sub_for(mode, Palette.NTSC, model)
+        assert np.array_equal(got, jdist.sub_for(mode, Palette.NTSC, model))
+        # every basis is integer-valued: the port's int32 copy is exact
+        assert np.array_equal(got.astype(np.int32).astype(np.float32), got)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_lane_windows_match_numpy_and_jax(mode):
+    spec = jscreen.spec_for_mode(mode)
+    vals = np.random.RandomState(6).randint(
+        0, 1 << spec.MASKED_BITS, (32, 128)).astype(np.int32)
+    for lane in range(spec.N_LANES):
+        got = tyiq.lane_windows(torch.as_tensor(vals), mode, lane)
+        assert got.dtype == torch.int32
+        assert got.shape == (32, 128, jyiq.n_pixels(mode))
+        assert np.array_equal(got.numpy(), jyiq.lane_windows(vals, mode,
+                                                              lane))
+        assert np.array_equal(got.numpy(), np.asarray(
+            jyiq.lane_windows(jnp.asarray(vals), mode, lane)))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_yiq_window_sums_match_jax(mode):
+    """The gather-sum against the JAX one-hot einsums: per lane through
+    `dist_lane_pairs` (rank dispatch) and both lanes of a bank stacked
+    through `dist_window_sums_sub2`."""
+    spec = jscreen.spec_for_mode(mode)
+    rng = np.random.RandomState(7)
+    va, vb = rng.randint(0, 1 << spec.MASKED_BITS,
+                         (2, spec.N_LANES, 32, 128))
+    sub = jdist.sub_for(mode, Palette.NTSC, "yiq")
+    tsub = torch.as_tensor(sub.astype(np.int32))
+    for lane in range(spec.N_LANES):
+        got = distance.dist_lane_pairs(torch.as_tensor(va[lane]),
+                                       torch.as_tensor(vb[lane]), mode,
+                                       lane, tsub)
+        ref = np.asarray(jdist.dist_lane_pairs(
+            jnp.asarray(va[lane]), jnp.asarray(vb[lane]), mode, lane,
+            jnp.asarray(sub)))
+        assert got.dtype == torch.int32
+        assert np.array_equal(got.numpy(), ref.astype(np.int64))
+    lanes = (0, 1)
+    wa = np.stack([jyiq.lane_windows(va[i], mode, l)
+                   for i, l in enumerate(lanes)])
+    wb = np.stack([jyiq.lane_windows(vb[i], mode, l)
+                   for i, l in enumerate(lanes)])
+    got = distance.dist_window_sums_sub2(
+        torch.as_tensor(wa), torch.as_tensor(wb), tsub[list(lanes)])
+    ref = np.asarray(jdist.dist_window_sums_sub2(
+        jnp.asarray(wa), jnp.asarray(wb), jnp.asarray(sub[list(lanes)])))
+    assert np.array_equal(got.numpy(), ref.astype(np.int64))
+
+
+def test_build_store_cost_matches_shipped_table():
+    """The DHGR NTSC window table built here (the plain recurrence on the
+    CPU) is the shipped npz, exactly."""
+    built = distance.build_store_cost(VideoMode.DHGR, Palette.NTSC,
+                                      "window", "cpu")
+    shipped = np.load(jdist.store_cost_path(VideoMode.DHGR, Palette.NTSC,
+                                            "window"))["cost"]
+    assert built.dtype == torch.int32 and built.shape == shipped.shape
+    assert np.array_equal(built.numpy(), shipped.astype(np.int32))
+
+
+def test_mono_store_cost_built_cached_and_exact(tmp_path, monkeypatch):
+    """No mono table is shipped: the first lookup builds it and saves it to
+    the user cache in the JAX package's layout, the second loads it; 64
+    sampled rows equal the JAX `dist_lane_pairs` on the same (t, c)."""
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
+    mode = VideoMode.DHGR
+    path = jdist.store_cost_path(mode, Palette.NTSC, "mono",
+                                 jdist._user_cache_dir())
+    assert path.startswith(str(tmp_path)) and not os.path.exists(path)
+    table = distance.store_cost_table(mode, Palette.NTSC, "mono")
+    assert os.path.exists(path)
+    assert table.dtype == np.int16 and table.shape == (4, 8192, 128)
+    saved = np.load(path)["cost"]
+    assert saved.dtype == np.uint16  # exact integers, as the JAX package
+    assert np.array_equal(saved.astype(np.int16), table)
+    assert np.array_equal(distance.store_cost_table(mode, Palette.NTSC,
+                                                    "mono"), table)
+
+    spec = jscreen.spec_for_mode(mode)
+    sub = jnp.asarray(jdist.sub16_mono())
+    rng = np.random.RandomState(8)
+    c = np.arange(128)[None, :]
+    for lane in range(4):
+        t = rng.randint(0, 8192, 16)[:, None] + 0 * c  # (16, 128)
+        want = np.asarray(jdist.dist_lane_pairs(
+            jnp.asarray(spec.masked_update(t, c)), jnp.asarray(t), mode,
+            lane, sub))
+        assert np.array_equal(table[lane, t[:, 0]], want.astype(np.int16))
+
+
+def test_hgr_store_cost_rows_match_shipped_table():
+    """`store_cost_rows` at L = 18 (HGR, both lanes' masked updates) on
+    sampled rows of the shipped HGR table."""
+    shipped = np.load(jdist.store_cost_path(VideoMode.HGR, Palette.NTSC,
+                                            "window"))["cost"]
+    sub = torch.as_tensor(distance.sub16(Palette.NTSC).astype(np.int32))
+    t = torch.as_tensor(np.random.RandomState(9).randint(0, 1 << 14, 48))
+    for lane in range(2):
+        got = distance.store_cost_rows(VideoMode.HGR, lane, t, sub)
+        assert np.array_equal(got.numpy(),
+                              shipped[lane, t.numpy()].astype(np.int32))
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

@@ -7,11 +7,12 @@ import numpy as np
 import pytest
 import torch
 
+from iivision_tpu.ops import distance as jdist
 from iivision_tpu.ops import editdist as jed
 from iivision_tpu.palettes import Palette
 from iivision_tpu.video_mode import VideoMode
 from iivision_tpu_torch import make_tables
-from iivision_tpu_torch.ops import editdist
+from iivision_tpu_torch.ops import distance, editdist
 
 
 @pytest.fixture(scope="module")
@@ -75,7 +76,36 @@ def test_pair_distance_writes_out(sub):
                                torch.zeros((48, 47), dtype=torch.uint16))
 
 
-def test_make_tables_refuses_store_cost(capsys):
-    with pytest.raises(SystemExit):
-        make_tables.main(["--what", "store_cost", "--device", "cpu"])
-    assert "ROADMAP.md" in capsys.readouterr().err
+def test_make_tables_refuses_store_cost(monkeypatch):
+    """A store-cost build for a card that is not there raises; it is not
+    run anywhere else."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        make_tables.main(["--what", "store_cost", "--device", "cuda"])
+
+
+def test_make_tables_store_cost_writes_the_shipped_table(tmp_path,
+                                                        monkeypatch):
+    """`--what store_cost` on the CPU asks `build_store_cost` for the DHGR
+    NTSC window table and writes what it returns in the JAX package's npz
+    layout: uint16 under "cost", equal to the shipped file.  (The build
+    itself is held against the shipped npz in test_torch_distance; here it
+    returns that npz.)"""
+    want = np.load(jdist.store_cost_path(VideoMode.DHGR, Palette.NTSC,
+                                         "window"))["cost"]
+    calls = []
+
+    def built(mode, palette, model, device):
+        calls.append((mode, palette, model, device.type))
+        return torch.as_tensor(want.astype(np.int32), device=device)
+
+    monkeypatch.setattr(distance, "build_store_cost", built)
+    make_tables.main(["--data_dir", str(tmp_path), "--modes", "DHGR",
+                      "--palettes", "NTSC", "--what", "store_cost",
+                      "--models", "window", "--device", "cpu"])
+    assert calls == [(VideoMode.DHGR, Palette.NTSC, "window", "cpu")]
+    path = jdist.store_cost_path(VideoMode.DHGR, Palette.NTSC, "window",
+                                 str(tmp_path))
+    got = np.load(path)["cost"]
+    assert got.dtype == want.dtype == np.uint16
+    assert np.array_equal(got, want)

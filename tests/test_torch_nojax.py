@@ -1,5 +1,6 @@
-"""iivision_tpu_torch needs no JAX: its entry points import, and a tiny
-encode runs, in a process where importing jax fails."""
+"""iivision_tpu_torch needs no JAX: its entry points import, and tiny DHGR
+and HGR yiq encodes and the sub-op microbenchmark run, in a process where
+importing jax fails."""
 
 import os
 import subprocess
@@ -25,9 +26,9 @@ import numpy as np
 import iivision_tpu_torch
 import iivision_tpu_torch.cli
 import iivision_tpu_torch.make_tables
-from iivision_tpu_torch import encoder
+from iivision_tpu_torch import bench_subop, encoder
 from iivision_tpu_torch.movie import Movie
-from iivision_tpu_torch.ops import distance
+from iivision_tpu_torch.ops import distance, yiq
 from iivision_tpu.palettes import Palette
 from iivision_tpu.video_mode import VideoMode
 
@@ -44,6 +45,19 @@ ops, main, aux = encoder.encode_movie(dist, lanes, bytes_tgt, plan, mode,
                                       seed=0)
 flat = encoder.flatten_ops(ops.numpy(), plan)
 assert flat.shape == (plan.n_ops, 6) and plan.n_ops > 0
+
+hgr = VideoMode.HGR
+dist = distance.ComputedDistance(hgr, Palette.NTSC, "yiq", device="cpu")
+plan, _ = encoder.plan_movie(
+    n_frames=1, n_audio_ticks=300, input_frame_rate=30.0,
+    ticks_per_second=14700.0, every_n_video_frames=1, mode=hgr, k=8)
+lanes, bytes_tgt = encoder.prepare_targets(fmain, None, hgr, "cpu")
+ops, main, aux = encoder.encode_movie(dist, lanes, bytes_tgt, plan, hgr,
+                                      seed=0)
+assert yiq.lane_windows(lanes[0, ..., 1], hgr, 1).shape == (32, 128, 15)
+recs = bench_subop.run("cpu", B=1, K=2, ts=(2,),
+                       variants=("plain", "plain_i16"))
+assert len(recs) == 2
 assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
 # the compile-cache opt-out was set only while the shared package loaded
 import os

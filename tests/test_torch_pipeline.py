@@ -1,5 +1,6 @@
 """iivision_tpu_torch end to end on the CPU: Movie against the JAX
-package's Movie, the FFT resample against the JAX one, and the CLI."""
+package's Movie (DHGR and HGR), the FFT resample against the JAX one, and
+the CLI (DHGR, HGR, and the yiq and mono colour models)."""
 
 import json
 import os
@@ -23,13 +24,15 @@ from tests.test_pipeline import gradient_movie
 def check_stream(data, movie, levels):
     """The player VM decodes the stream, its duty cycles are the audio
     levels and its final screens are the encoder's model (except the
-    padding op's cell)."""
+    padding op's cell; HGR has no aux bank)."""
     res = PlayerVM().decode(data)
     assert res.ok, (res.error, res.error_pos)
     assert res.n_ops == movie.plan.n_ops
     assert np.array_equal(res.duty, levels[:movie.plan.n_ops] * 2 + 34)
-    for vm, model in ((res.main, movie.final_main),
-                      (res.aux, movie.final_aux)):
+    pairs = [(res.main, movie.final_main)]
+    if movie.video_mode == VideoMode.DHGR:
+        pairs.append((res.aux, movie.final_aux))
+    for vm, model in pairs:
         eq = vm == np.asarray(model).astype(np.uint8)
         eq[0, 0] = True
         assert eq.all(), np.argwhere(~eq)[:5]
@@ -39,13 +42,23 @@ def test_movie_matches_jax_movie(tmp_path):
     """A 4-frame gradient clip with 14,700 Hz audio (levels need no
     resample, so they are exact) gives a byte-identical .a2m through both
     packages' Movie."""
+    check_movie_matches_jax(tmp_path, VideoMode.DHGR)
+
+
+def test_hgr_movie_matches_jax_movie(tmp_path):
+    """The same clip in HGR: one bank, 8-bit bytes, whole-frame chunks."""
+    check_movie_matches_jax(tmp_path, VideoMode.HGR)
+
+
+def check_movie_matches_jax(tmp_path, mode):
     rgb = gradient_movie(F=4)
     tone = (np.sin(2 * np.pi * 440 * np.arange(4410) / 4410)
             * 16000).astype(np.float32)
-    kw = dict(frames_source=rgb, every_n_video_frames=2, k=8, seed=0)
+    kw = dict(frames_source=rgb, every_n_video_frames=2, k=8, seed=0,
+              video_mode=mode)
     jm = JaxMovie(audio_source=jaudio.Audio(data=tone, rate=14700,
                                             bitrate=14700),
-                  dist=get_dist(VideoMode.DHGR), **kw)
+                  dist=get_dist(mode), **kw)
     tm = Movie(audio_source=taudio.Audio(data=tone, rate=14700,
                                          bitrate=14700, device="cpu"),
                device="cpu", **kw)
@@ -89,9 +102,6 @@ def test_resample_fft_matches_jax():
     (["--mesh", "2"], "--mesh"),
     (["--chunk_frames", "64"], "--chunk_frames"),
     (["--joint_content"], "--joint_content"),
-    (["--colour_model", "yiq"], "--colour_model"),
-    (["--colour_model", "mono"], "--colour_model"),
-    (["--video_mode", "HGR"], "--video_mode HGR"),
 ])
 def test_cli_refuses_unported_flags(capsys, extra, flag):
     with pytest.raises(SystemExit) as e:
@@ -124,3 +134,27 @@ def test_cli_transcodes_on_cpu(tmp_path, capsys):
     res = PlayerVM().decode(open(out, "rb").read())
     assert res.ok and res.n_ops == stats["n_ops"]
     assert os.path.getsize(out) % 2048 == 0
+
+
+@pytest.mark.parametrize("extra", [
+    ["--video_mode", "HGR"],
+    ["--colour_model", "yiq"],
+    ["--colour_model", "mono"],
+])
+def test_cli_transcodes_mode_and_model_on_cpu(tmp_path, monkeypatch, extra):
+    """HGR and the yiq and mono colour models through the CLI (mono picks
+    the 1-bit mono dither and builds its store-cost table into the user
+    cache); the player VM plays each stream."""
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path))
+    clip = str(tmp_path / "clip.npy")
+    np.save(clip, gradient_movie(F=4))
+    out = str(tmp_path / "clip.a2m")
+    stats_path = str(tmp_path / "stats.json")
+    cli.main([clip, "--device", "cpu", "--output", out, "--stats_json",
+              stats_path] + extra)
+    stats = json.load(open(stats_path))[0]
+    res = PlayerVM().decode(open(out, "rb").read())
+    assert res.ok and res.n_ops == stats["n_ops"] > 0
+    if extra[-1] == "mono":
+        assert os.listdir(tmp_path / "iivision_tpu" / "store_cost") == [
+            "v1_DHGR_NTSC_mono.npz"]
