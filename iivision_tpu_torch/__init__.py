@@ -1,5 +1,6 @@
 """ii-vision on PyTorch + CUDA: the DHGR and HGR transcode (window, yiq and
-mono colour models), LUT and store-cost generation and the sub-op
+mono colour models, default or joint content), solo or as a batch of
+movies, the quality scorer, LUT and store-cost generation and the sub-op
 microbenchmark for one NVIDIA H100, beside the JAX package `iivision_tpu`.
 
 The JAX package is the reference this package is held against.  Modules
@@ -14,9 +15,16 @@ What runs through `jax` there is written here in torch:
   yiq window sums and the store-cost tables (loaded or built);
 - `ops.yiq`: the yiq model's window codes;
 - `ops.editdist`: all-pairs edit-distance tiles (kernel A, CUDA);
-- `ops.random`: threefry2x32 nonces, bit-equal to `jax.random`;
-- `ops.subop`: the encoder's sequential sub-op chain (kernel B, CUDA);
+- `ops.random`: threefry2x32 nonces, bit-equal to `jax.random`, for one
+  key or a batch of keys;
+- `ops.subop`: the encoder's sequential sub-op chain for B movies, default
+  and joint content (kernel B, CUDA);
 - `ops.subop_bench`: the sub-op microbenchmark's math (kernel C, CUDA);
+- `ops.resize`: the batched Lanczos resize (float64 einsums);
+- `ops.dither`: the ordered, HGR and mono quantizers and screen packing;
+- `parallel.mesh`: batch ingest, batch and mixed-length encodes and op
+  fetches on one card;
+- `quality`: replay and perceptual scoring of emitted streams;
 - `encoder`, `audio`, `movie`, `cli`, `make_tables`, `bench_subop`.
 
 Device policy: every function that allocates takes an explicit `device`;

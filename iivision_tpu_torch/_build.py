@@ -37,7 +37,8 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "iiv_editdist_tile": [_P, _I, _P, _I, _I, _P, _P, _P],
     "iiv_dist_pairs": [_P, _P, _L, _I, _P, _P, _P],
-    "iiv_subop_chain": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P],
+    "iiv_subop_chain": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                        _P],
     "iiv_subop_bench": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
 }
 

@@ -1,7 +1,9 @@
-"""Transcode CLI on a torch device (counterpart of iivision_tpu/cli.py, solo
-path): one input video to one `.a2m` stream.
+"""Transcode CLI on a torch device (counterpart of iivision_tpu/cli.py):
+one input video to one `.a2m` stream, or several inputs encoded together
+as one batch.
 
     python -m iivision_tpu_torch.cli clip.mp4 --device cuda
+    python -m iivision_tpu_torch.cli a.mp4 b.mp4 --device cuda [--joint_content]
 
 Flags the port does not run yet are refused with the ROADMAP.md item that
 will bring them; nothing falls back silently.
@@ -9,32 +11,49 @@ will bring them; nothing falls back silently.
 
 import argparse
 import json
+import os
 
 from iivision_tpu.cli import _default_out
 from iivision_tpu.palettes import Palette
 from iivision_tpu.video_mode import VideoMode
+from iivision_tpu_torch.parallel.mesh import SHARDING_ITEM
+
+
+def mesh_cards(args) -> int:
+    """Cards `--mesh` asks for: a count, or 'auto' for every card of the
+    device's kind (one for the CPU)."""
+    if args.mesh is None:
+        return 1
+    if args.mesh == "auto":
+        import torch
+
+        if args.device.startswith("cuda"):
+            return max(1, torch.cuda.device_count())
+        return 1
+    return int(args.mesh)
+
 
 # flag -> (test on the parsed args, ROADMAP.md item)
 _NOT_PORTED = [
-    ("several inputs", lambda a: len(a.input) > 1,
-     "Queue 1: 'batch encode'"),
-    ("--mesh", lambda a: a.mesh is not None, "Queue 1: 'batch encode'"),
+    ("--mesh above one card", lambda a: mesh_cards(a) != 1, SHARDING_ITEM),
     ("--chunk_frames", lambda a: a.chunk_frames is not None,
      "Queue 1: 'chunked and streaming long-movie encoders'"),
-    ("--joint_content", lambda a: a.joint_content,
-     "Queue 1: 'joint content'"),
 ]
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Transcode a video to ][-Vision format (PyTorch + CUDA).")
-    p.add_argument("input", nargs="+", help="Input video file.")
+    p.add_argument("input", nargs="+",
+                   help="Input video file(s); several inputs encode "
+                        "together as one batch.")
     p.add_argument("--device", default="cuda",
                    help="torch device to encode on (default: cuda).")
     p.add_argument("--frame_rate", type=float, default=None,
                    help="Override the probed input frame rate.")
-    p.add_argument("--output", default=None, help="Output .a2m path.")
+    p.add_argument("--output", default=None,
+                   help="Output .a2m path (one input) or directory "
+                        "(several inputs).")
     p.add_argument("--max_output_mb", type=float, default=0,
                    help="Maximum MB to output (0 = unlimited).")
     p.add_argument("--audio_normalization", type=float, default=None,
@@ -63,7 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0,
                    help="Tie-break RNG seed (reproducible streams).")
     p.add_argument("--joint_content", action="store_true",
-                   help="Not ported yet.")
+                   help="Joint content selection: pick each op's byte to "
+                        "maximize the total improvement over its 4 offsets, "
+                        "searching all content codes.")
     p.add_argument("--colour_model", type=str, default="window",
                    choices=["window", "yiq", "mono"],
                    help="Perceptual basis: 'window' (the reference's "
@@ -71,7 +92,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "'mono' (dot-level Hamming).")
     p.add_argument("--chunk_frames", type=int, default=None,
                    help="Not ported yet.")
-    p.add_argument("--mesh", default=None, help="Not ported yet.")
+    p.add_argument("--mesh", default=None,
+                   help="Cards to shard a batch over: 1, or 'auto' on a "
+                        "one-card host (more is not ported yet).")
     p.add_argument("--stats_json", default=None,
                    help="Write the transcode stats to this JSON file.")
     return p
@@ -87,6 +110,8 @@ def main(args=None):
     if args.dither is None:
         # the mono colour model pairs with the 1-bit mono quantizer
         args.dither = "mono" if args.colour_model == "mono" else "ordered"
+    if len(args.input) > 1:
+        return transcode_batch(args)
     from iivision_tpu_torch.movie import Movie
 
     path = args.input[0]
@@ -106,6 +131,7 @@ def main(args=None):
         seed=args.seed,
         frame_rate=args.frame_rate,
         colour_model=args.colour_model,
+        joint_content=args.joint_content,
     )
     print("Palette %s" % args.palette)
     print("Input frame rate = %f" % m.frames.input_frame_rate)
@@ -114,11 +140,106 @@ def main(args=None):
     for key in ("n_ops", "movie_seconds", "encode_s", "total_s",
                 "realtime_x"):
         print("%s = %s" % (key, stats[key]))
-    if args.stats_json:
-        with open(args.stats_json, "w") as f:
-            json.dump([{"input": path, "output": out,
-                        "device": str(m.device), **stats}], f, indent=1)
-        print("Stats written to %s" % args.stats_json)
+    _write_stats(args.stats_json, [{"input": path, "output": out,
+                                    "device": str(m.device), **stats}])
+
+
+def transcode_batch(args):
+    """Several inputs -> as many .a2m files through one batch encode per
+    frame rate (iivision_tpu/cli.py transcode_batch).
+
+    Each input is ingested on the host and its audio decoded and
+    resampled on the device; inputs are grouped by probed frame rate
+    (movies in one batch share the opcode schedule's timing) and each group
+    runs `parallel.mesh.encode_movies_mixed` with seeds args.seed + i.
+    Returns the output paths."""
+    import time
+
+    import numpy as np
+
+    from iivision_tpu import frames
+    from iivision_tpu.stream.emit_fast import emit_stream_fast
+    from iivision_tpu_torch import audio as audio_mod, require_device
+    from iivision_tpu_torch.ops import distance
+    from iivision_tpu_torch.parallel import mesh as pmesh
+
+    dev = require_device(args.device)
+    mode = VideoMode[args.video_mode]
+    palette = Palette[args.palette]
+    dist = distance.ComputedDistance(mode, palette, args.colour_model,
+                                     device=dev)
+    max_bytes = int(1024 * 1024 * args.max_output_mb) or None
+
+    if args.output:
+        os.makedirs(args.output, exist_ok=True)
+    ingested = []
+    for path in args.input:
+        fr = frames.ingest(path, mode, palette,
+                           every_n_video_frames=args.every_n_video_frames,
+                           dither_mode=args.dither,
+                           frame_rate=args.frame_rate)
+        try:
+            aud = audio_mod.Audio(path, bitrate=args.audio_bitrate,
+                                  normalization=args.audio_normalization,
+                                  device=dev)
+        except Exception:
+            # no audio track: silent stream covering the whole video
+            seconds = fr.n_frames_total / fr.input_frame_rate
+            aud = audio_mod.Audio(
+                data=np.zeros(int(seconds * args.audio_bitrate) + 1,
+                              np.float32),
+                rate=args.audio_bitrate, bitrate=args.audio_bitrate,
+                normalization=1.0, device=dev)
+        out = (os.path.join(args.output, os.path.basename(_default_out(path)))
+               if args.output else _default_out(path))
+        if any(out == m[3] for m in ingested):
+            raise ValueError(
+                "output collision: %r would be written by two inputs "
+                "(distinct inputs share a basename) - rename an input or "
+                "use separate --output dirs" % (out,))
+        ingested.append((path, fr, aud, out))
+
+    groups = {}
+    for i, (_, fr, _, _) in enumerate(ingested):
+        groups.setdefault(round(fr.input_frame_rate, 6), []).append(i)
+    stats_rows = []
+    for rate, idxs in sorted(groups.items()):
+        movies = [(ingested[i][1].targets_main, ingested[i][1].targets_aux,
+                   ingested[i][1].n_frames_total,
+                   len(ingested[i][2].levels())) for i in idxs]
+        t0 = time.time()
+        flats, _, n_ops = pmesh.encode_movies_mixed(
+            dist, movies, mode, rate, float(args.audio_bitrate),
+            every_n_video_frames=args.every_n_video_frames,
+            k=args.k, j=args.j, seeds=[args.seed + i for i in idxs],
+            joint=args.joint_content)
+        encode_s = time.time() - t0
+        for flat, i in zip(flats, idxs):
+            path, fr, aud, out = ingested[i]
+            levels = np.asarray(aud.levels())[:len(flat)]
+            data = emit_stream_fast(flat, levels, mode,
+                                    max_bytes_out=max_bytes)
+            with open(out, "wb") as f:
+                f.write(data)
+            print("Wrote %s (%d ops, %.1fs @ %.3f fps input)"
+                  % (out, len(flat), len(flat) / args.audio_bitrate, rate))
+            stats_rows.append({
+                "input": path, "output": out, "device": str(dev),
+                "n_ops": len(flat), "stream_bytes": len(data),
+                "movie_seconds": len(flat) / args.audio_bitrate,
+                "input_frame_rate": rate, "batch_size": len(idxs),
+                "batch_encode_s": encode_s,
+            })
+    _write_stats(args.stats_json, stats_rows)
+    return [m[3] for m in ingested]
+
+
+def _write_stats(path, rows):
+    if not path:
+        return
+    with open(path, "w") as f:
+        json.dump(rows, f, indent=1)
+    print("Stats written to %s" % path)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Single-movie transcoder on a torch device (counterpart of
 iivision_tpu/movie.py, solo path), DHGR or HGR, with the window, yiq or
-mono colour model.
+mono colour model and the default or joint content rule.
 
 Host ingest (`frames.ingest`: decode, C++ resize, quantize and pack), the
 opcode plan, op flattening and stream emission are the JAX package's own,
@@ -43,6 +43,7 @@ class Movie:
             audio_source=None,
             frame_rate: Optional[float] = None,
             colour_model: str = "window",
+            joint_content: bool = False,
     ):
         self.device = require_device(device)
         self.every_n_video_frames = every_n_video_frames
@@ -52,6 +53,9 @@ class Movie:
         self.k = k
         self.j = j
         self.seed = seed
+        # joint content selection: each op's byte is chosen over all
+        # content codes (--joint_content)
+        self.joint_content = joint_content
         self.timings = {}
 
         t0 = time.time()
@@ -112,7 +116,7 @@ class Movie:
             self.device)
         ops, fin_main, fin_aux = encoder.encode_movie(
             self.dist, lanes, bytes_tgt, plan, self.video_mode,
-            seed=self.seed)
+            seed=self.seed, joint=self.joint_content)
         flat = encoder.flatten_ops(ops.cpu().numpy(), plan)
         self.final_main = fin_main.cpu().numpy()
         self.final_aux = fin_aux.cpu().numpy()

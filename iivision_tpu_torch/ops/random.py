@@ -15,7 +15,9 @@ _threefry_random_bits_partitionable, and random.py _uniform).
 uint32 words are held in int64 tensors and masked to 32 bits after every
 add and shift, so no operation relies on integer wrap-around.  Keys are
 pairs of int64 tensors that broadcast, so one call derives the nonces of
-many steps at once; `step_nonces` does that for a block of encoder steps.
+many steps at once; `step_nonces` does that for a block of encoder steps,
+for one key or for a (B,) batch of keys (`prng_keys`, the form of
+`jax.vmap(jax.random.PRNGKey)(seeds)`).
 """
 
 import torch
@@ -46,10 +48,20 @@ def threefry2x32(k1, k2, x0, x1):
 
 def prng_key(seed: int, device) -> tuple:
     """jax.random.PRNGKey(seed) for a 32-bit seed: the key (0, seed)."""
-    if not -(1 << 31) <= seed < (1 << 31):
-        raise ValueError("seed %d does not fit 32 bits" % seed)
-    return (torch.zeros((), dtype=torch.int64, device=device),
-            torch.tensor(seed & MASK32, dtype=torch.int64, device=device))
+    k1, k2 = prng_keys([seed], device)
+    return k1[0], k2[0]
+
+
+def prng_keys(seeds, device) -> tuple:
+    """jax.vmap(jax.random.PRNGKey)(seeds): one key per seed, as a pair of
+    (B,) int64 tensors."""
+    seeds = [int(s) for s in seeds]
+    for s in seeds:
+        if not -(1 << 31) <= s < (1 << 31):
+            raise ValueError("seed %d does not fit 32 bits" % s)
+    return (torch.zeros(len(seeds), dtype=torch.int64, device=device),
+            torch.tensor([s & MASK32 for s in seeds], dtype=torch.int64,
+                         device=device))
 
 
 def fold_in(key: tuple, data) -> tuple:
@@ -84,11 +96,14 @@ def uniform(key: tuple, shape) -> torch.Tensor:
 def step_nonces(key: tuple, steps: torch.Tensor, k: int, j: int):
     """The encoder's nonces for a block of absolute step indices.
 
-    Returns (nonce_p (S, 32), nonce_o (S, j, k, 256)) float32, equal to the
-    JAX scan's per-step draws for every step in `steps`."""
-    skey = fold_in(key, steps)  # (S,) pairs
-    nonce_p = uniform(fold_in(skey, torch.zeros_like(steps)), (32,))
+    `key` is one key (scalar tensors) or a batch of keys (shape (B,)).
+    Returns (nonce_p key-shape + (S, 32), nonce_o key-shape + (S, j, k,
+    256)) float32, equal to the JAX scan's per-step draws for every step in
+    `steps` (under vmap over the keys for a batch)."""
+    k1, k2 = key
+    skey = fold_in((k1[..., None], k2[..., None]), steps)  # (..., S) pairs
+    nonce_p = uniform(fold_in(skey, 0), (32,))
     jj = torch.arange(1, j + 1, dtype=torch.int64, device=steps.device)
-    okey = fold_in((skey[0][:, None], skey[1][:, None]), jj[None, :])
-    nonce_o = uniform(okey, (k, 256))  # (S, j, k, 256)
+    okey = fold_in((skey[0][..., None], skey[1][..., None]), jj)
+    nonce_o = uniform(okey, (k, 256))  # (..., S, j, k, 256)
     return nonce_p, nonce_o

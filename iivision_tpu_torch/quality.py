@@ -1,0 +1,75 @@
+"""Output-quality metrics on a torch device (counterpart of
+iivision_tpu/quality.py `score_screens` / `replay_frame_errors`).
+
+`replay_frame_errors` replays an emitted opcode stream against the frame
+schedule, as the player executes it (the JAX package's numpy `replay_ops`,
+shared), and scores the screen at each encoded-frame boundary with the
+encoder's own perceptual lane distance: `distance.dist_lane_pairs`, which
+is kernel A's elementwise entry on a card (window and mono models) or the
+yiq window sums.  It is the fidelity number that compares encoder
+settings (k, j, joint content) on equal footing.
+"""
+
+import numpy as np
+import torch
+
+from iivision_tpu.quality import QualityReport, SCORE_CHUNK, replay_ops
+from iivision_tpu.screen import spec_for_mode
+from iivision_tpu.video_mode import VideoMode
+
+from iivision_tpu_torch import encoder
+from iivision_tpu_torch.ops import distance
+
+__all__ = ["QualityReport", "replay_ops", "replay_frame_errors",
+           "score_screens"]
+
+
+def score_screens(states, tgt_lanes, mode: VideoMode,
+                  sub: torch.Tensor) -> np.ndarray:
+    """Mean perceptual lane distance for a batch of screens, on `sub`'s
+    device.
+
+    states: (F, 2, 32, 256) screen bytes (bank 1 ignored for HGR);
+    tgt_lanes: (F, 32, 128, L) target masked lanes (array or tensor).
+    Returns (F,) float32.  Scores SCORE_CHUNK frames per call."""
+    dev = sub.device
+    n_lanes = int(spec_for_mode(mode).N_LANES)
+    F = states.shape[0]
+    out = np.empty(F, np.float32)
+    for i in range(0, F, SCORE_CHUNK):
+        st = torch.as_tensor(np.asarray(states[i:i + SCORE_CHUNK]),
+                             device=dev)
+        tl = torch.as_tensor(tgt_lanes[i:i + SCORE_CHUNK], device=dev)
+        cur = encoder.masked_lanes(st, mode)
+        total = torch.zeros(st.shape[0], dtype=torch.float32, device=dev)
+        for lane in range(n_lanes):
+            d = distance.dist_lane_pairs(cur[..., lane], tl[..., lane],
+                                         mode, lane, sub)
+            total = total + d.sum(dim=(-2, -1)).to(torch.float32)
+        out[i:i + SCORE_CHUNK] = (
+            total / (32.0 * 128.0 * n_lanes)).cpu().numpy()
+    return out
+
+
+def replay_frame_errors(flat_ops: np.ndarray, plan, lanes_tgt,
+                        mode: VideoMode, dist) -> QualityReport:
+    """Replay the opcode stream and score each encoded frame's endpoint.
+
+    lanes_tgt: (F, 32, 128, L) target lanes, an array or a tensor; dist:
+    a distance.ComputedDistance, whose device scores."""
+    op_bank = np.repeat(plan.step_bank, plan.step_nvalid)
+    op_frame = np.repeat(plan.step_frame, plan.step_nvalid)
+    n = len(flat_ops)
+    assert len(op_bank) == n, (len(op_bank), n)
+
+    boundaries = np.append(np.flatnonzero(np.diff(op_frame)), n - 1)
+    states = replay_ops(flat_ops, op_bank, boundaries)
+    frames_idx = op_frame[boundaries]
+    if isinstance(lanes_tgt, torch.Tensor):
+        tl = lanes_tgt[torch.as_tensor(frames_idx, device=lanes_tgt.device)]
+    else:
+        tl = np.asarray(lanes_tgt)[frames_idx]
+    errors = score_screens(states, tl, mode, dist.sub)
+    return QualityReport(frame_errors=errors,
+                         final_error=float(errors[-1]),
+                         mean_error=float(errors.mean()))

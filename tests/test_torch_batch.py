@@ -1,0 +1,186 @@
+"""The batch transcode in iivision_tpu_torch (parallel.mesh,
+encoder.encode_movies, the CLI's several-input mode) on the CPU against
+the JAX package's `iivision_tpu.parallel.mesh`: seeded batches byte-equal,
+each movie equal to its solo encode, mixed-length batches, the compact op
+fetch, and the one-card mesh rule."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from iivision_tpu import encoder as jenc
+from iivision_tpu.parallel import mesh as jmesh
+from iivision_tpu.sim import PlayerVM
+from iivision_tpu.video_mode import VideoMode
+from iivision_tpu_torch import cli, encoder
+from iivision_tpu_torch.parallel import mesh
+
+from tests.test_encoder import get_dist, random_frames
+from tests.test_pipeline import gradient_movie
+from tests.test_torch_joint import torch_dist
+
+DHGR = VideoMode.DHGR
+HGR = VideoMode.HGR
+
+
+def batch_targets(mode, B, n_frames, seed):
+    """B movies' distinct random targets, stacked: numpy (main, aux)."""
+    mains, auxes = zip(*(random_frames(mode, n_frames, seed + i)
+                         for i in range(B)))
+    return np.stack(mains), (np.stack(auxes) if mode == DHGR else None)
+
+
+def flat_plan(mode, k, j):
+    plan, _ = jenc.plan_movie(
+        n_frames=2, n_audio_ticks=700, input_frame_rate=14700.0 / 350,
+        ticks_per_second=14700.0, every_n_video_frames=1, mode=mode, k=k,
+        j=j)
+    return plan
+
+
+@pytest.mark.parametrize("mode", [DHGR, HGR])
+@pytest.mark.parametrize("k,j", [(8, 1), (4, 2)])
+def test_batch_matches_jax_and_solo(mode, k, j):
+    """Three distinct movies with seeds 4, 9, 2: the port's flat batch ops
+    and final screens equal the JAX vmapped scan's, and each movie equals
+    the port's solo encode with its own seed."""
+    B, seeds = 3, [4, 9, 2]
+    plan = flat_plan(mode, k, j)
+    main, aux = batch_targets(mode, B, 2, 30)
+    F = main.shape[1]
+    j_lanes, j_bytes = jenc.prepare_targets(
+        main.reshape(B * F, 32, 256),
+        None if aux is None else aux.reshape(B * F, 32, 256), mode)
+    j_lanes = np.asarray(j_lanes).reshape((B, F) + j_lanes.shape[1:])
+    j_bytes = np.asarray(j_bytes).reshape((B, F) + j_bytes.shape[1:])
+    j_ops, j_main, j_aux = jmesh.encode_movies_batch(
+        get_dist(mode), j_lanes, j_bytes, plan, mode, seeds=seeds)
+    S = len(plan.step_frame)
+    want = jmesh.fetch_ops(j_ops, plan)[:, :S]
+
+    lanes, bytes_ = encoder.prepare_targets(main, aux, mode, "cpu")
+    assert np.array_equal(lanes.numpy(), j_lanes)
+    assert np.array_equal(bytes_.numpy(), j_bytes)
+    ops, fin_main, fin_aux = mesh.encode_movies_batch(
+        torch_dist(mode), lanes, bytes_, plan, mode, seeds=seeds)
+    assert ops.shape == (B, S * k * j * 6) and ops.dtype == torch.uint8
+    got = mesh.fetch_ops(ops, plan)
+    assert np.array_equal(got, want)
+    assert np.array_equal(fin_main.numpy(), np.asarray(j_main))
+    assert np.array_equal(fin_aux.numpy(), np.asarray(j_aux))
+    for i in range(B):
+        solo, solo_main, _ = encoder.encode_movie(
+            torch_dist(mode), lanes[i], bytes_[i], plan, mode,
+            seed=seeds[i])
+        assert np.array_equal(solo.numpy(), got[i]), i
+        assert np.array_equal(solo_main.numpy(), fin_main[i].numpy())
+
+
+@pytest.mark.parametrize("specs,fps,tps", [
+    # tests/test_mesh.py:26: (n_input_frames, n_ticks, seed)
+    ([(4, 2000, 0), (2, 900, 1)], 12.0, 14700.0),
+    # tests/test_mesh.py:65: a long-audio, short-video movie
+    ([(2, 1398, 0), (4, 500, 1)], 1.0, 350.0),
+])
+def test_mixed_matches_jax(specs, fps, tps):
+    """encode_movies_mixed (shared dominating plan, last-frame padding,
+    each movie cut to its own n_ops) equals the JAX one op for op."""
+    movies = []
+    for nf, nt, sd in specs:
+        main, aux = random_frames(DHGR, nf, 40 + sd)
+        movies.append((main, aux, nf, nt))
+    seeds = [sd + 3 for _, _, sd in specs]
+    kw = dict(input_frame_rate=fps, ticks_per_second=tps,
+              every_n_video_frames=1, k=8, seeds=seeds)
+    j_flats, j_plan, j_n = jmesh.encode_movies_mixed(
+        get_dist(DHGR), movies, DHGR, **kw)
+    flats, plan_max, n_ops = mesh.encode_movies_mixed(
+        torch_dist(DHGR), movies, DHGR, **kw)
+    assert n_ops == j_n and plan_max.n_ops == j_plan.n_ops
+    for got, want in zip(flats, j_flats):
+        assert got.shape == want.shape
+        assert np.array_equal(got, want)
+
+
+def test_fetch_ops_compact_matches_flatten():
+    """The static-index gather of valid ops equals flatten_ops of the
+    padded view, movie by movie."""
+    plan = flat_plan(DHGR, 4, 2)
+    main, aux = batch_targets(DHGR, 3, 2, 80)
+    lanes, bytes_ = encoder.prepare_targets(main, aux, DHGR, "cpu")
+    ops, _, _ = mesh.encode_movies_batch(torch_dist(DHGR), lanes, bytes_,
+                                         plan, DHGR, seeds=[0, 1, 2])
+    compact = mesh.fetch_ops_compact(ops, plan)
+    full = mesh.fetch_ops(ops, plan)
+    assert compact.shape == (3, plan.n_ops, 6)
+    for i in range(3):
+        assert np.array_equal(compact[i], encoder.flatten_ops(full[i], plan))
+
+
+@pytest.mark.parametrize("bad", [2, 4, ["cuda:0", "cuda:1"]])
+def test_mesh_refuses_more_than_one_card(bad):
+    plan = flat_plan(DHGR, 8, 1)
+    main, aux = batch_targets(DHGR, 1, 2, 0)
+    lanes, bytes_ = encoder.prepare_targets(main, aux, DHGR, "cpu")
+    with pytest.raises(ValueError, match="multi-card batch sharding"):
+        mesh.encode_movies_batch(torch_dist(DHGR), lanes, bytes_, plan,
+                                 DHGR, seeds=[0], mesh=bad)
+    for one in (None, 1, torch.device("cpu"), ["cpu"]):
+        mesh.check_mesh(one)
+
+
+def test_cli_batch_transcodes_on_cpu(tmp_path, capsys):
+    """Two clips of different length through the CLI's batch mode with
+    --joint_content and --mesh auto: each stream plays in the player VM at
+    its own op count, and the shorter one equals its padded solo encode
+    (joint, seed args.seed + 1)."""
+    clips = []
+    for name, F in (("long", 6), ("short", 2)):
+        path = str(tmp_path / ("%s.npy" % name))
+        np.save(path, gradient_movie(F=F))
+        clips.append(path)
+    out_dir = str(tmp_path / "out")
+    stats_path = str(tmp_path / "stats.json")
+    cli.main(clips + ["--device", "cpu", "--output", out_dir, "--seed", "5",
+                      "--joint_content", "--mesh", "auto", "--stats_json",
+                      stats_path])
+    assert capsys.readouterr().out.count("Wrote ") == 2
+    rows = json.load(open(stats_path))
+    assert [r["batch_size"] for r in rows] == [2, 2]
+    vm = PlayerVM()
+    for row in rows:
+        res = vm.decode(open(row["output"], "rb").read())
+        assert res.ok and res.n_ops == row["n_ops"] > 0
+    assert rows[0]["n_ops"] > rows[1]["n_ops"]
+    assert sorted(os.listdir(out_dir)) == ["long.a2m", "short.a2m"]
+
+    # the short clip, padded to the batch's plan and encoded alone
+    from iivision_tpu import frames
+    from iivision_tpu.palettes import Palette
+
+    fr = [frames.ingest(c, DHGR, Palette.NTSC, every_n_video_frames=2)
+          for c in clips]
+    ticks = [int(f.n_frames_total / f.input_frame_rate * 14700) + 1
+             for f in fr]
+    plan_max, n_enc = encoder.plan_movie(
+        n_frames=fr[0].n_frames_total, n_audio_ticks=max(ticks),
+        input_frame_rate=fr[0].input_frame_rate, ticks_per_second=14700.0,
+        every_n_video_frames=2, mode=DHGR, k=8)
+
+    def pad(t):
+        reps = max(0, n_enc - len(t))
+        return np.concatenate([t, np.repeat(t[-1:], reps, 0)])[:n_enc]
+
+    lanes, bytes_ = encoder.prepare_targets(
+        pad(fr[1].targets_main), pad(fr[1].targets_aux), DHGR, "cpu")
+    ops, _, _ = encoder.encode_movie(torch_dist(DHGR), lanes, bytes_,
+                                     plan_max, DHGR, seed=6, joint=True)
+    solo = encoder.flatten_ops(ops.numpy(), plan_max)[:rows[1]["n_ops"]]
+    from iivision_tpu.stream.emit_fast import emit_stream_fast
+
+    levels = np.zeros(len(solo), np.int32)
+    assert emit_stream_fast(solo, levels, DHGR) == open(
+        rows[1]["output"], "rb").read()

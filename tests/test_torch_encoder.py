@@ -220,25 +220,27 @@ def test_offset_zero_companion_matches_host_oracle():
     tgt[page, 10] = 5
     rows = torch.stack([torch.as_tensor(x[page], dtype=torch.float32)
                         for x in (henc.up[0], henc.dw[0], henc.banks[0],
-                                  tgt)])[None]
-    out = torch.zeros((1, 1, 6), dtype=torch.uint8)
-    subop.sub_op_chain(rows, torch.zeros((1, 256), dtype=torch.int32),
+                                  tgt)])[None, None]
+    out = torch.zeros((1, 1, 1, 6), dtype=torch.uint8)
+    subop.sub_op_chain(rows, torch.zeros((1, 1, 256), dtype=torch.int32),
                        torch.zeros((1, C), dtype=torch.int16), None,
-                       torch.tensor([page]), 1, 0, out)
+                       torch.tensor([[page]]), 1,
+                       torch.zeros(1, dtype=torch.int32), out)
     want = henc.step(tgt, 0, 0, 1)
-    assert out[0].tolist() == [list(want[0])] == [[35, 5, 10, 0, 10, 10]]
-    assert np.array_equal(rows[0, 0].numpy(), henc.up[0, page])
-    assert np.array_equal(rows[0, 2].numpy(), henc.banks[0, page])
-    assert rows[0, 2, 0] == 5 and rows[0, 0, 0] == 0
+    assert out[0, 0].tolist() == [list(want[0])] == [[35, 5, 10, 0, 10, 10]]
+    assert np.array_equal(rows[0, 0, 0].numpy(), henc.up[0, page])
+    assert np.array_equal(rows[0, 0, 2].numpy(), henc.banks[0, page])
+    assert rows[0, 0, 2, 0] == 5 and rows[0, 0, 0, 0] == 0
 
 
 def test_unported_mode_raises(capsys):
-    """Joint content selection is still refused, naming its ROADMAP
-    item."""
+    """The chunked long-movie encoder is still refused, naming its ROADMAP
+    item (joint content, once refused here, is ported)."""
     with pytest.raises(SystemExit):
-        cli.main(["a.npy", "--joint_content", "--device", "cpu"])
+        cli.main(["a.npy", "--joint_content", "--chunk_frames", "64",
+                  "--device", "cpu"])
     err = capsys.readouterr().err
-    assert "--joint_content" in err and "'joint content'" in err
+    assert "--chunk_frames" in err and "'chunked and streaming" in err
 
 
 def test_distance_model_on_another_device_is_refused():

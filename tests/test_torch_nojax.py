@@ -1,6 +1,8 @@
 """iivision_tpu_torch needs no JAX: its entry points import, and tiny DHGR
-and HGR yiq encodes and the sub-op microbenchmark run, in a process where
-importing jax fails."""
+and HGR yiq encodes, a B=2 batch encode with joint content, a batch
+ingest, a replay score and the sub-op microbenchmark run, in a process
+where importing jax fails.  `bench.synth_clip`, which chip_smoke.py uses,
+imports there too."""
 
 import os
 import subprocess
@@ -26,9 +28,12 @@ import numpy as np
 import iivision_tpu_torch
 import iivision_tpu_torch.cli
 import iivision_tpu_torch.make_tables
-from iivision_tpu_torch import bench_subop, encoder
+from iivision_tpu_torch import bench_subop, encoder, quality
 from iivision_tpu_torch.movie import Movie
-from iivision_tpu_torch.ops import distance, yiq
+from iivision_tpu_torch.ops import distance, dither, resize, yiq
+from iivision_tpu_torch.parallel import mesh
+import bench
+import torch
 from iivision_tpu.palettes import Palette
 from iivision_tpu.video_mode import VideoMode
 
@@ -55,6 +60,21 @@ lanes, bytes_tgt = encoder.prepare_targets(fmain, None, hgr, "cpu")
 ops, main, aux = encoder.encode_movie(dist, lanes, bytes_tgt, plan, hgr,
                                       seed=0)
 assert yiq.lane_windows(lanes[0, ..., 1], hgr, 1).shape == (32, 128, 15)
+
+clip = torch.as_tensor(np.stack([bench.synth_clip(seconds=0.1, phase=p)
+                                 for p in (0.0, 1.0)]))
+lanes_b, bytes_b = mesh.ingest_movies_batch(clip, mode, Palette.NTSC)
+assert lanes_b.shape == (2, 3, 32, 128, 4)
+dist = distance.ComputedDistance(mode, Palette.NTSC, device="cpu")
+plan, _ = encoder.plan_movie(
+    n_frames=3, n_audio_ticks=400, input_frame_rate=30.0,
+    ticks_per_second=14700.0, every_n_video_frames=1, mode=mode, k=4)
+ops_b, _, _ = mesh.encode_movies_batch(dist, lanes_b, bytes_b, plan, mode,
+                                       seeds=[0, 1], joint=True)
+flat_b = mesh.fetch_ops_compact(ops_b, plan)
+assert flat_b.shape == (2, plan.n_ops, 6)
+rep = quality.replay_frame_errors(flat_b[0], plan, lanes_b[0], mode, dist)
+assert rep.mean_error > 0
 recs = bench_subop.run("cpu", B=1, K=2, ts=(2,),
                        variants=("plain", "plain_i16"))
 assert len(recs) == 2

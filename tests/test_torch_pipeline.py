@@ -98,12 +98,15 @@ def test_resample_fft_matches_jax():
 
 
 @pytest.mark.parametrize("extra,flag", [
-    (["b.npy"], "several inputs"),
     (["--mesh", "2"], "--mesh"),
+    (["b.npy", "--mesh", "4"], "--mesh"),
     (["--chunk_frames", "64"], "--chunk_frames"),
-    (["--joint_content"], "--joint_content"),
+    (["b.npy", "--joint_content", "--chunk_frames", "64"], "--chunk_frames"),
 ])
 def test_cli_refuses_unported_flags(capsys, extra, flag):
+    """A mesh of more than one card and --chunk_frames are refused, solo
+    and batch, naming their ROADMAP item; several inputs and
+    --joint_content are ported."""
     with pytest.raises(SystemExit) as e:
         cli.main(["a.npy"] + extra + ["--device", "cpu"])
     assert e.value.code == 2
