@@ -2,14 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from csrc/ with nvcc and checks each against
-its plain torch version on the card: kernel A (all pairs, and elementwise
-at L = 10 and 18), kernel B (solo DHGR at both encoder settings, solo HGR
-with its 256 contents, a case where offset 0 is the only companion, and
-batches: 32 DHGR movies at k=16 j=4 and 8 HGR movies at k=8 j=1), kernel
-B's joint variant (DHGR and HGR at k=16 j=4, and a crafted page where a
-non-target content wins) and kernel C (the sub-op microbenchmark at B=32,
-K=16, T=100).
+Builds the port's CUDA kernels from csrc/ with nvcc (one process per
+source, all at once) and checks each against its plain torch version on
+the card: kernel A (all pairs, and elementwise at L = 10 and 18), the
+chunk-start kernel (DHGR and HGR, window and mono bases, both DHGR banks,
+B = 1 and 32), the body kernel's threefry (B = 32 keys, steps up to 2^20,
+four sub-ops) and the body kernel itself (real plan bodies with padded
+steps and a partial step: DHGR k=8 j=1 and k=16 j=4, HGR k=8 j=1, B = 1
+and 32, seeded and deterministic, and tie-heavy bodies whose every choice
+falls to the nonces), kernel B (solo DHGR at both encoder settings, solo
+HGR with its 256 contents, a case where offset 0 is the only companion,
+and batches: 32 DHGR movies at k=16 j=4 and 8 HGR movies at k=8 j=1),
+kernel B's joint variant (DHGR and HGR at k=16 j=4, and a crafted page
+where a non-target content wins) and kernel C (the sub-op microbenchmark
+at B=32, K=16, T=100).  Each kernel's device time is the mean of many
+back-to-back launches between one event pair, queued behind a sleep so
+that the host's wrapper time stays outside the pair.
 It reproduces the JAX package's golden stream, then drives each entry
 point of the port with the launch counts set to 0 before it and read
 after it:
@@ -21,9 +29,9 @@ after it:
 - 2 s clips in the yiq (DHGR) and mono (HGR) colour models; the mono clip
   builds its store-cost table on the card, and sampled rows of that table
   are held against the plain build;
-- the batch transcode: 32 distinct 10 s clips (`bench.synth_clip`, one
-  phase each) through ingest_movies_batch, encode_movies_batch at k=16
-  j=4, fetch_ops_compact and emit; every stream through the player VM, and
+- the batch transcode: 32 distinct 10 s clips (`synth_clip`, one phase
+  each) through ingest_movies_batch, encode_movies_batch at k=16 j=4,
+  fetch_ops_compact and emit; every stream through the player VM, and
   movies 0 and 31 byte-equal to their solo encodes;
 - the CLI's batch mode on three .npz clips of 10, 6 and 3 s: every stream
   plays at its own length, and the shortest equals its padded solo encode;
@@ -32,15 +40,17 @@ after it:
   mean error within 1.01x of tests/data/quality_baseline.json, and joint
   below the default rule's baseline.
 
-A last, uncounted phase traces 1 s clips at k=16 j=4, solo and as a batch
-of 32, with torch.profiler: device busy share, kernel launches per plan
-step and the kernels that launch most.
+A last, uncounted phase traces 1 s clips with torch.profiler (solo and a
+batch of 32 at k=16 j=4, solo at k=8 j=1): device busy share, kernel
+launches per plan step and the kernels that launch most, and holds kernel
+B's and the body kernel's timer figures against the profiler's.
 
 Every phase prints one line of numbers; any failure raises, giving a
 non-zero exit.  The last two lines are the kernel report and the device
 line, both JSON.  Needs one CUDA card; without one it exits non-zero
-before printing any result.  Imports nothing of JAX.  Store-cost tables
-it builds go to a temporary cache directory that is removed at exit.
+before printing any result.  Imports nothing of JAX nor of the JAX
+package.  Store-cost tables it builds go to a temporary cache directory
+that is removed at exit.
 """
 
 import hashlib
@@ -53,9 +63,22 @@ import time
 
 GOLDEN_SHA = "57fdd52adf53d75101ed121d28d8a5389465c09f99d960ba6c47c20dbdb30fbc"
 
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 outside the
+# tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
 # kernel -> (wrapper module, wrapper name, source, the TPU or JAX function
 # it replaces)
 KERNELS = {
+    "chunk_start": ("chunk_start", "chunk_start",
+                    "iivision_tpu_torch/csrc/chunk_start.cu",
+                    "iivision_tpu/encoder.py:540"),
+    "encode_body": ("body", "encode_body", "iivision_tpu_torch/csrc/body.cu",
+                    "iivision_tpu/encoder.py:567"),
+    "threefry_uniform": ("body", "threefry_uniform",
+                         "iivision_tpu_torch/csrc/body.cu",
+                         "iivision_tpu/encoder.py:695"),
     "editdist_tile": ("editdist", "pair_distance",
                       "iivision_tpu_torch/csrc/editdist.cu",
                       "iivision_tpu/ops/editdist.py:232"),
@@ -107,8 +130,8 @@ def main():
               "needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from iivision_tpu.video_mode import VideoMode
     from iivision_tpu_torch import _build, bench_subop
+    from iivision_tpu_torch.video_mode import VideoMode
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -120,7 +143,8 @@ def main():
     print("build: %s seconds=%.2f built=%s" % (
         os.path.relpath(b["path"]), b["seconds"], b["built"]))
     for line in b["log"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line \
+                or "spill" in line:
             print("  ptxas: " + line.strip())
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -132,6 +156,9 @@ def main():
     # -- 2. each kernel against its plain version -------------------------
     report = {}
     check_kernel_a(dev, report)
+    check_chunk_start(dev, report)
+    check_threefry(dev, report)
+    check_body(dev, report)
     check_kernel_b(dev, report)
     check_kernel_b_joint(dev, report)
     check_kernel_c(dev, report)
@@ -140,49 +167,78 @@ def main():
 
     # -- 3. the port's paths, each counted --------------------------------
     dhgr, hgr = VideoMode.DHGR, VideoMode.HGR
+    enc = ("chunk_start", "encode_body")
     totals = {name: 0 for name in KERNELS}
     with tempfile.TemporaryDirectory() as cache:
         os.environ["XDG_CACHE_HOME"] = cache
         for path, want, fn, args, kw in (
-                ("dhgr_10s_k8_j1", ("dist_pairs", "subop_chain"), run_movie,
-                 (dev, dhgr, 8, 1, 10), {}),
-                ("dhgr_10s_k16_j4", ("dist_pairs", "subop_chain"),
-                 run_movie, (dev, dhgr, 16, 4, 10), {}),
-                ("hgr_10s_k8_j1", ("dist_pairs", "subop_chain"), run_movie,
-                 (dev, hgr, 8, 1, 10), {}),
+                ("dhgr_10s_k8_j1", enc, run_movie, (dev, dhgr, 8, 1, 10), {}),
+                ("dhgr_10s_k16_j4", enc, run_movie, (dev, dhgr, 16, 4, 10),
+                 {}),
+                ("hgr_10s_k8_j1", enc, run_movie, (dev, hgr, 8, 1, 10), {}),
                 ("lut_dhgr_ntsc", ("editdist_tile",), build_and_check_lut,
                  (dev,), {}),
                 ("bench_subop", ("subop_bench",), run_bench,
                  (dev, bench_subop, report), {}),
-                ("dhgr_2s_yiq", ("subop_chain",), run_movie,
+                ("dhgr_2s_yiq", ("encode_body",), run_movie,
                  (dev, dhgr, 8, 1, 2), dict(colour_model="yiq")),
-                ("hgr_2s_mono", ("dist_pairs", "subop_chain"), run_mono,
-                 (dev, hgr), {}),
-                ("batch_dhgr_b32_10s_k16_j4", ("dist_pairs", "subop_chain"),
-                 run_batch, (dev,), {}),
-                ("batch_cli_mixed", ("dist_pairs", "subop_chain"),
-                 run_cli_mixed, (dev,), {}),
+                ("hgr_2s_mono", enc + ("dist_pairs",), run_mono, (dev, hgr),
+                 {}),
+                ("batch_dhgr_b32_10s_k16_j4", enc, run_batch, (dev,), {}),
+                ("batch_cli_mixed", enc, run_cli_mixed, (dev,), {}),
                 ("quality_dhgr_5s_k16_j4",
-                 ("dist_pairs", "subop_chain", "subop_chain_joint"),
-                 run_quality, (dev,), {})):
+                 enc + ("dist_pairs", "subop_chain_joint"), run_quality,
+                 (dev,), {})):
             _, launches = counted(path, want, fn, *args, **kw)
             for name, n in launches.items():
                 totals[name] += n
         del os.environ["XDG_CACHE_HOME"]
     print("main path launches: %s" % json.dumps(totals))
     t0 = time.time()
-    trace_encodes(dev)
+    trace_encodes(dev, report)
     print("trace_s=%.1f" % (time.time() - t0))
 
-    kernels = [dict(name=name, route="cuda", source=src, replaces=replaces,
-                    launches=totals[name], **report[name])
-               for name, (_, _, src, replaces) in KERNELS.items()]
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    kernels = []
+    for name, (_, _, src, replaces) in KERNELS.items():
+        entry = dict(name=name, route="cuda", source=src, replaces=replaces,
+                     launches=totals[name])
+        entry.update((k, report[name][k]) for k in keys)
+        # no single PyTorch call computes any of these functions
+        entry["library_ms"] = None
+        kernels.append(entry)
     print("wall_s=%.1f" % (time.time() - t_start))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def bound(nbytes: float, ops: float = 0.0) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the float32 operations over the non-tensor peak."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def synth_clip(seconds=10.0, fps=30, w=280, h=192, phase=0.0):
+    """A moving RGB pattern, (seconds * fps, h, w, 3) uint8 (the JAX
+    benchmark's bench.synth_clip)."""
+    import numpy as np
+
+    F = int(seconds * fps)
+    t = np.linspace(0, 1, F, dtype=np.float32)[:, None, None]
+    yy = np.linspace(0, 1, h, dtype=np.float32)[None, :, None]
+    xx = np.linspace(0, 1, w, dtype=np.float32)[None, None, :]
+    shape = (F, h, w)
+    r = np.broadcast_to(127.5 + 127.5 * np.sin(7 * (xx + 2 * t) + phase),
+                        shape)
+    g = np.broadcast_to(255 * np.abs(np.sin(3 * (yy + t) + phase)), shape)
+    b = np.broadcast_to(127.5 + 127.5 * np.cos(5 * (xx + yy + t) + phase),
+                        shape)
+    return np.stack([r, g, b], axis=-1).astype(np.uint8)
 
 
 def as_i32(t):
@@ -194,8 +250,38 @@ def as_i32(t):
 
 
 def cuda_ms(fn, reps: int, setup=None) -> float:
-    """Mean device milliseconds of fn() over reps (after one warm-up),
-    timed with CUDA events; setup() runs outside the timed region."""
+    """Device milliseconds per call of fn(): `reps` calls back to back
+    between one pair of CUDA events, after a warm-up.  A device sleep ahead
+    of the start event holds the stream while the host enqueues every
+    call, so the pair brackets the device's work and not the wrappers'
+    host time.  setup() builds each call's arguments before the timed
+    region.  A call that launches hundreds of small ops (a plain version)
+    can outrun the launch queue; its figure then includes host gaps."""
+    import torch
+
+    args = [setup() if setup else () for _ in range(reps + 1)]
+    fn(*args[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(*args[0])
+    host_s = time.perf_counter() - t0  # enqueue time of one call
+    torch.cuda.synchronize()
+    # about 2e9 cycles a second: cover the host's enqueue of every call
+    torch.cuda._sleep(int(min(2.0, 2 * host_s * reps + 1e-3) * 2e9))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        fn(*args[i + 1])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wrapper_ms(fn, reps: int, setup=None) -> float:
+    """Milliseconds from before one call's wrapper to after its launch
+    (the smoke's earlier timer): host wrapper time plus the kernel, mean
+    of `reps` single calls."""
     import torch
 
     args = setup() if setup else ()
@@ -219,9 +305,9 @@ def check_kernel_a(dev, report):
     import numpy as np
     import torch
 
-    from iivision_tpu.palettes import Palette
-    from iivision_tpu.video_mode import VideoMode
     from iivision_tpu_torch.ops import distance, editdist
+    from iivision_tpu_torch.palettes import Palette
+    from iivision_tpu_torch.video_mode import VideoMode
 
     sub = editdist.cost_matrix(Palette.NTSC, dev)
     errs = []
@@ -245,8 +331,10 @@ def check_kernel_a(dev, report):
     plain_ms = cuda_ms(lambda: editdist.dp_distance_tile(codes, codes, sub), 2)
     print("kernel A all-pairs 8192x8192 lane: ms=%.3f plain_ms=%.3f" % (
         ms, plain_ms))
+    n, L = codes.shape
     report["editdist_tile"] = dict(max_abs_err=max(errs), ms=ms,
-                                   plain_ms=plain_ms)
+                                   plain_ms=plain_ms,
+                                   **bound(2 * n * L * 4 + 1024 + n * n * 2))
 
     # the encoder's chunk-start diff shapes: both lanes of a bank, L = 10
     # (DHGR) and L = 18 (HGR), under the NTSC window basis
@@ -272,6 +360,9 @@ def check_kernel_a(dev, report):
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         entry["ms" + tag] = ms
         entry["plain_ms" + tag] = plain_ms
+        if not tag:
+            entry.update(bound(2 * pa.numel() * 4 + 1024
+                               + pa[..., 0].numel() * 4))
 
 
 def code_pairs(rng, shape, L: int):
@@ -289,6 +380,227 @@ def code_pairs(rng, shape, L: int):
     return pa, np.where(rng.rand(*shape, 1) < 0.5, sw, pb)
 
 
+def random_state(dev, rng, shape, hi: int):
+    """int32 tensor of the given shape, uniform in [0, hi)."""
+    import torch
+
+    return torch.as_tensor(rng.randint(0, hi, shape), dtype=torch.int32,
+                           device=dev)
+
+
+def check_chunk_start(dev, report):
+    """The chunk-start kernel against chunk_start_plain, bit-equal up and
+    dw: DHGR (both banks) and HGR, window and mono bases, B = 1 and 32, on
+    seeded random banks (8-bit bytes), targets and state."""
+    import numpy as np
+    import torch
+
+    from iivision_tpu_torch.ops import chunk_start, distance
+    from iivision_tpu_torch.palettes import Palette
+    from iivision_tpu_torch.video_mode import VideoMode
+
+    entry = report["chunk_start"] = dict(max_abs_err=0)
+    for mode, model, B, bank, tag in (
+            (VideoMode.DHGR, "window", 1, 0, ""),
+            (VideoMode.DHGR, "window", 1, 1, "_aux"),
+            (VideoMode.DHGR, "mono", 32, 1, "_mono_b32"),
+            (VideoMode.DHGR, "window", 32, 0, "_b32"),
+            (VideoMode.HGR, "window", 1, 0, "_hgr"),
+            (VideoMode.HGR, "mono", 32, 0, "_hgr_mono_b32")):
+        rng = np.random.RandomState(len(entry) + 11)
+        nb = chunk_start.n_banks(mode)
+        F, frame = 3, 1
+        banks = random_state(dev, rng, (B, nb, 32, 256), 256)
+        tgt = random_state(dev, rng, (B * F, nb, 32, 256), 256)
+        lanes = chunk_start.masked_lanes(tgt, mode).reshape(
+            (B, F, 32, 128, -1)).contiguous()
+        up0 = random_state(dev, rng, (B, nb, 32, 256), 5000)
+        dw0 = random_state(dev, rng, (B, nb, 32, 256), 900)
+        sub = torch.as_tensor(distance.sub_for(mode, Palette.NTSC, model)
+                              .astype(np.int32), device=dev)
+        got = [up0.clone(), dw0.clone()]
+        want = [up0.clone(), dw0.clone()]
+        chunk_start.chunk_start(banks, lanes, frame, bank, sub, *got, mode)
+        chunk_start.chunk_start_plain(banks, lanes, frame, bank, sub, *want,
+                                      mode)
+        torch.cuda.synchronize()
+        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
+        if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("chunk-start kernel (%s) disagrees with "
+                                 "plain" % (tag or "DHGR"))
+        state = [up0.clone(), dw0.clone()]
+        ms = cuda_ms(lambda: chunk_start.chunk_start(
+            banks, lanes, frame, bank, sub, *state, mode), 200)
+        plain_ms = cuda_ms(lambda: chunk_start.chunk_start_plain(
+            banks, lanes, frame, bank, sub, *state, mode), 3)
+        # bytes: every bank row, the bank's two target lanes, up read and
+        # written, dw written, the cost matrix
+        nbytes = B * (nb * 8192 * 4 + 8192 * 4 + 3 * 8192 * 4) + 1024
+        print("chunk_start %s %s B=%d bank=%d: max_abs_err=%d ms=%.4f "
+              "plain_ms=%.4f bound_ms=%.5f" % (
+                  mode.name, model, B, bank, err, ms, plain_ms,
+                  bound(nbytes)["bound_ms"]))
+        entry["ms" + tag] = ms
+        entry["plain_ms" + tag] = plain_ms
+        if not tag:
+            entry.update(bound(nbytes))
+
+
+def check_threefry(dev, report):
+    """The body kernel's threefry (iiv_threefry_uniform) against
+    ops/random.step_nonces on the card, bit-equal: 32 keys, steps from 0 to
+    2^20, k = 16 slots, j = 4 sub-ops."""
+    import torch
+
+    from iivision_tpu_torch.ops import body
+    from iivision_tpu_torch.ops import random as trandom
+
+    seeds = list(range(28)) + [2 ** 31 - 1, -1, -5, 123456789]
+    keys = trandom.key_words(seeds, dev)
+    steps = torch.tensor([0, 1, 2, 37, 4095, 65536, 999999, 1 << 20],
+                         dtype=torch.int32, device=dev)
+    k, j = 16, 4
+    got = body.threefry_uniform(keys, steps, k, j)
+    want = trandom.step_nonces(trandom.prng_keys(seeds, dev),
+                               steps.to(torch.int64), k, j)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.equal(g.view(torch.int32),
+                                                 w.view(torch.int32)):
+            raise AssertionError("threefry kernel bits differ from "
+                                 "step_nonces")
+    ms = cuda_ms(lambda: body.threefry_uniform(keys, steps, k, j), 100)
+    plain_ms = cuda_ms(lambda: trandom.step_nonces(
+        trandom.prng_keys(seeds, dev), steps.to(torch.int64), k, j), 3)
+    nbytes = sum(x.numel() * 4 for x in got) + keys.numel() * 4
+    print("threefry B=%d steps=%d k=%d j=%d: %d nonces bit-equal ms=%.4f "
+          "plain_ms=%.4f" % (len(seeds), len(steps), k, j,
+                             sum(x.numel() for x in got), ms, plain_ms))
+    report["threefry_uniform"] = dict(max_abs_err=0.0, ms=ms,
+                                      plain_ms=plain_ms, **bound(nbytes))
+
+
+def pick_body(plan) -> int:
+    """First step of the first body that holds both a padded step (nvalid
+    0) and a partial one (0 < nvalid < k * j)."""
+    Sc, full = plan.chunk_steps, plan.k * plan.j
+    for b0 in range(0, len(plan.step_nvalid), Sc):
+        nv = plan.step_nvalid[b0:b0 + Sc]
+        if (nv == 0).any() and ((nv > 0) & (nv < full)).any():
+            return b0
+    raise AssertionError("no body with padded and partial steps")
+
+
+def body_inputs(dev, mode, k: int, j: int, B: int, seed: int,
+                tie: bool = False):
+    """A real plan's body (1 s at 30 fps, every 2nd frame) with seeded
+    random targets and state for B movies.  tie: every up equal, so each
+    page and offset choice falls to the nonces."""
+    import numpy as np
+    import torch
+
+    from iivision_tpu_torch import encoder
+    from iivision_tpu_torch.ops import chunk_start, distance
+    from iivision_tpu_torch.palettes import Palette
+
+    rng = np.random.RandomState(seed)
+    plan, n_enc = encoder.plan_movie(
+        n_frames=30, n_audio_ticks=14700, input_frame_rate=30.0,
+        ticks_per_second=14700.0, every_n_video_frames=2, mode=mode, k=k,
+        j=j)
+    b0 = pick_body(plan)
+    nb = chunk_start.n_banks(mode)
+    hi = 128 if nb == 2 else 256
+    tgt = rng.randint(0, hi, (B, n_enc, 2, 32, 256))
+    if nb == 1:
+        tgt[:, :, 1] = tgt[:, :, 0]
+    bytes_tgt = torch.as_tensor(tgt, dtype=torch.int32, device=dev)
+    lanes = chunk_start.masked_lanes(bytes_tgt[:, :, :nb], mode).contiguous()
+    up = (torch.full((B, nb, 32, 256), 1000, dtype=torch.int32, device=dev)
+          if tie else random_state(dev, rng, (B, nb, 32, 256), 3000)
+          * random_state(dev, rng, (B, nb, 32, 256), 2))
+    state = [up.contiguous(), random_state(dev, rng, (B, nb, 32, 256), 900),
+             random_state(dev, rng, (B, nb, 32, 256), hi)]
+    dist = distance.ComputedDistance(mode, Palette.NTSC, device=dev)
+    table = dist.store_cost16.reshape(-1, dist.n_contents)
+    S = len(plan.step_frame)
+    ops = torch.full((S, B, j, k, 6), 7, dtype=torch.uint8, device=dev)
+    nvalid = torch.tensor(plan.step_nvalid, dtype=torch.int32, device=dev)
+    return plan, b0, state, lanes, bytes_tgt, table, nvalid, ops
+
+
+def check_body(dev, report):
+    """The body kernel against encode_body_plain (the per-step torch loop
+    with the plain sub-op chain and step_nonces), state and records
+    bit-equal, on real plan bodies that hold padded and partial steps:
+    DHGR k=8 j=1 and k=16 j=4, HGR k=8 j=1, B = 1 and 32, seeded and
+    deterministic, and tie-heavy bodies (every up equal)."""
+    import torch
+
+    from iivision_tpu_torch.ops import body
+    from iivision_tpu_torch.ops import random as trandom
+    from iivision_tpu_torch.video_mode import VideoMode
+
+    D, H = VideoMode.DHGR, VideoMode.HGR
+    entry = report["encode_body"] = dict(max_abs_err=0)
+    for mode, k, j, B, seeded, tie, tag in (
+            (D, 8, 1, 1, True, False, ""),
+            (D, 8, 1, 1, False, False, "_det"),
+            (D, 16, 4, 1, True, False, "_k16_j4"),
+            (D, 16, 4, 32, True, False, "_b32_k16_j4"),
+            (D, 16, 4, 32, False, False, "_b32_k16_j4_det"),
+            (H, 8, 1, 1, True, False, "_hgr"),
+            (H, 8, 1, 32, True, False, "_hgr_b32"),
+            (D, 8, 1, 32, True, True, "_tie_b32"),
+            (D, 16, 4, 32, True, True, "_tie_b32_k16_j4"),
+            (H, 8, 1, 1, False, True, "_tie_hgr_det")):
+        plan, b0, state, lanes, bytes_tgt, table, nvalid, ops = body_inputs(
+            dev, mode, k, j, B, 50 + len(entry), tie)
+        Sc = plan.chunk_steps
+        frame, bank = int(plan.step_frame[b0]), int(plan.step_bank[b0])
+        keys = trandom.key_words(range(B), dev) if seeded else None
+        got = [x.clone() for x in state] + [ops.clone()]
+        want = [x.clone() for x in state] + [ops.clone()]
+        body.encode_body(*got[:3], lanes, bytes_tgt, frame, bank, table,
+                         keys, nvalid, b0, Sc, got[3], mode)
+        body.encode_body_plain(*want[:3], lanes, bytes_tgt, frame, bank,
+                               table, keys, nvalid, b0, Sc, want[3], mode)
+        torch.cuda.synchronize()
+        err = max(int((g.int() - w.int()).abs().max())
+                  for g, w in zip(got, want))
+        if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+            bad = [i for i, (g, w) in enumerate(zip(got, want))
+                   if not torch.equal(g, w)]
+            raise AssertionError("body kernel (%s) disagrees with plain in "
+                                 "%s (up, dw, banks, ops)" % (tag or "DHGR",
+                                                              bad))
+        if not (got[3][b0:b0 + Sc] != 7).any():
+            raise AssertionError("body %s wrote no record" % tag)
+        st = [x.clone() for x in state] + [ops.clone()]
+        ms = cuda_ms(lambda: body.encode_body(
+            *st[:3], lanes, bytes_tgt, frame, bank, table, keys, nvalid, b0,
+            Sc, st[3], mode), 100)
+        plain_ms = cuda_ms(lambda: body.encode_body_plain(
+            *st[:3], lanes, bytes_tgt, frame, bank, table, keys, nvalid, b0,
+            Sc, st[3], mode), 2)
+        nv = plan.step_nvalid[b0:b0 + Sc]
+        run = int((nv > 0).sum())
+        # bytes per movie: up, dw and the bank bytes read and written, the
+        # target bytes and the bank's two target lanes, one table read per
+        # offset per sub-op run, the body's records
+        nbytes = B * (3 * 2 * 8192 * 4 + 2 * 8192 * 4
+                      + run * k * j * 256 * 2 + Sc * k * j * 6)
+        print("encode_body %s k=%d j=%d B=%d seeded=%s tie=%s steps=%d "
+              "nvalid=%s: max_abs_err=%d ms=%.4f plain_ms=%.4f "
+              "bound_ms=%.5f" % (mode.name, k, j, B, seeded, tie, Sc,
+                                 nv.tolist(), err, ms, plain_ms,
+                                 bound(nbytes)["bound_ms"]))
+        entry["ms" + tag] = ms
+        entry["plain_ms" + tag] = plain_ms
+        if not tag:
+            entry.update(bound(nbytes))
+
+
 def subop_inputs(dev, mode, k: int, j: int, seed: int, B: int = 1):
     """Seeded kernel B inputs for B movies at the encoder's shapes for
     `mode`: page rows, table rows on the main bank's lanes, the real NTSC
@@ -297,14 +609,15 @@ def subop_inputs(dev, mode, k: int, j: int, seed: int, B: int = 1):
     import numpy as np
     import torch
 
-    from iivision_tpu.palettes import Palette
-    from iivision_tpu.screen import spec_for_mode
-    from iivision_tpu.video_mode import VideoMode
     from iivision_tpu_torch.ops import distance
+    from iivision_tpu_torch.palettes import Palette
+    from iivision_tpu_torch.screen import spec_for_mode
+    from iivision_tpu_torch.video_mode import VideoMode
 
     rng = np.random.RandomState(seed)
     table16 = torch.as_tensor(
-        distance.store_cost_table(mode, Palette.NTSC), device=dev)
+        distance.store_cost_table(mode, Palette.NTSC, "window", dev),
+        device=dev)
     R, C = table16.shape[1], table16.shape[2]
     up = rng.randint(0, 3000, (B, k, 256)) * (rng.rand(B, k, 256) < 0.6)
     up[:, 0] = 0  # one idle page per movie: its sub-ops are padding
@@ -331,8 +644,9 @@ def subop_inputs(dev, mode, k: int, j: int, seed: int, B: int = 1):
 def hold_chain(dev, entry, tag, joint, rows, sc_rows, table, nonce, pages,
                nvalid, pad, reps=200):
     """One kernel B call against the plain chain on the same inputs (rows
-    and records bit-equal), then both timed; records ms and plain_ms
-    under `tag` in `entry`."""
+    and records bit-equal), then both timed; records ms, plain_ms and
+    wrapper_ms (wrapper + launch, the smoke's earlier timer) under `tag` in
+    `entry`, and the bound of the untagged shape."""
     import torch
 
     from iivision_tpu_torch.ops import subop
@@ -355,15 +669,29 @@ def hold_chain(dev, entry, tag, joint, rows, sc_rows, table, nonce, pages,
     ms = cuda_ms(lambda r: chain(r, sc_rows, table, nonce, pages, nvalid,
                                  pad, out_k), reps,
                  setup=lambda: (rows.clone(),))
+    w_ms = wrapper_ms(lambda r: chain(r, sc_rows, table, nonce, pages,
+                                      nvalid, pad, out_k), reps,
+                      setup=lambda: (rows.clone(),))
     plain_ms = cuda_ms(lambda r: subop.sub_op_chain_plain(
         r, sc_rows, table, nonce, pages, nvalid, pad, out_p, joint),
-        max(3, reps // 20), setup=lambda: (rows.clone(),))
+        3, setup=lambda: (rows.clone(),))
+    C = table.shape[1]
+    # rows read (4) and written (3), table rows, one table read per offset
+    # per sub-op (and every content for joint), nonces, records
+    nbytes = B * k * (7 * 256 * 4 + 256 * 4 + j * 256 * 2 * (
+        C + 1 if joint else 1) + j * 6 + 8) + B * 4
+    if nonce is not None:
+        nbytes += nonce.numel() * 4
     print("kernel B%s B=%d C=%d k=%d j=%d: max_abs_err=%g ms=%.4f "
-          "plain_ms=%.4f" % (" joint" if joint else "", B, table.shape[1],
-                             k, j, err, ms, plain_ms))
+          "wrapper_ms=%.4f plain_ms=%.4f bound_ms=%.5f" % (
+              " joint" if joint else "", B, C, k, j, err, ms, w_ms, plain_ms,
+              bound(nbytes)["bound_ms"]))
     entry["max_abs_err"] = max(entry["max_abs_err"], err)
     entry["ms" + tag] = ms
+    entry["wrapper_ms" + tag] = w_ms
     entry["plain_ms" + tag] = plain_ms
+    if not tag:
+        entry.update(bound(nbytes))
     return rows_k, out_k
 
 
@@ -374,8 +702,8 @@ def check_kernel_b(dev, report):
     (8, 1), each movie with its own pages, nonces and padding byte."""
     import torch
 
-    from iivision_tpu.video_mode import VideoMode
     from iivision_tpu_torch.ops import subop
+    from iivision_tpu_torch.video_mode import VideoMode
 
     # the solo DHGR CLI default (k=8, j=1) gives ms / plain_ms; the other
     # settings are reported beside it
@@ -423,7 +751,7 @@ def check_kernel_b_joint(dev, report):
     import numpy as np
     import torch
 
-    from iivision_tpu.video_mode import VideoMode
+    from iivision_tpu_torch.video_mode import VideoMode
 
     entry = report["subop_chain_joint"] = dict(max_abs_err=0.0)
     for mode, seed, tag in ((VideoMode.DHGR, 43, ""),
@@ -479,22 +807,29 @@ def check_kernel_c(dev, report):
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         raise AssertionError("kernel C disagrees with the plain loop")
     ms = cuda_ms(lambda: subop_bench.run_kernel(*args, T), 50)
-    plain_ms = cuda_ms(lambda: subop_bench.run_plain(*args, T), 3)
-    print("kernel C B=32 K=16 T=%d: max_abs_err=%g ms=%.4f plain_ms=%.4f"
-          % (T, err, ms, plain_ms))
-    report["subop_bench"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    plain_ms = cuda_ms(lambda: subop_bench.run_plain(*args, T), 2)
+    R = args[0].shape[0]
+    # four (R, 256) float32 inputs read, three written; six float32 ops per
+    # offset per sub-op (two products and a sum for the score, a product
+    # and a sum for the cost row, a difference)
+    bnd = bound(7 * R * 256 * 4, 6.0 * T * R * 256)
+    print("kernel C B=32 K=16 T=%d: max_abs_err=%g ms=%.4f plain_ms=%.4f "
+          "bound_ms=%.5f (%s)" % (T, err, ms, plain_ms, bnd["bound_ms"],
+                                  bnd["bound_by"]))
+    report["subop_bench"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 **bnd)
 
 
 def check_golden(dev):
     """The JAX package's pinned stream (tests/test_stream.py), encoded on
-    the card through both kernels."""
+    the card through the chunk-start and body kernels."""
     import numpy as np
 
-    from iivision_tpu.palettes import Palette
-    from iivision_tpu.stream.emit_fast import emit_stream_fast
-    from iivision_tpu.video_mode import VideoMode
     from iivision_tpu_torch import encoder
     from iivision_tpu_torch.ops import distance
+    from iivision_tpu_torch.palettes import Palette
+    from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
+    from iivision_tpu_torch.video_mode import VideoMode
 
     mode = VideoMode.DHGR
     dist = distance.ComputedDistance(mode, Palette.NTSC, device=dev)
@@ -535,9 +870,9 @@ def build_lut(dev):
     through kernel A."""
     import torch
 
-    from iivision_tpu.palettes import Palette
-    from iivision_tpu.video_mode import VideoMode
     from iivision_tpu_torch.ops import editdist
+    from iivision_tpu_torch.palettes import Palette
+    from iivision_tpu_torch.video_mode import VideoMode
 
     torch.cuda.synchronize()
     t0 = time.time()
@@ -561,10 +896,10 @@ def run_movie(dev, mode, k: int, j: int, seconds: int,
     import numpy as np
     import torch
 
-    from iivision_tpu.video_mode import VideoMode
-    from iivision_tpu_torch.movie import Movie
-
     from scipy.io import wavfile
+
+    from iivision_tpu_torch.movie import Movie
+    from iivision_tpu_torch.video_mode import VideoMode
 
     rgb = gradient_clip(30 * seconds)
     n = 44100 * seconds
@@ -609,8 +944,8 @@ def run_mono(dev, mode):
     import numpy as np
     import torch
 
-    from iivision_tpu.palettes import Palette
     from iivision_tpu_torch.ops import distance
+    from iivision_tpu_torch.palettes import Palette
 
     path = distance.store_cost_path(mode, Palette.NTSC, "mono",
                                     distance._user_cache_dir())
@@ -660,17 +995,15 @@ def run_bench(dev, bench_subop, report):
 
 
 def synth_clips(B: int, seconds: float, every_n: int = 1):
-    """B distinct bench.synth_clip movies (280x192, 30 fps, phase 0.2*i),
-    every `every_n`-th frame kept: (B, F, 192, 280, 3) uint8, made on 8
-    host threads."""
+    """B distinct synth_clip movies (280x192, 30 fps, phase 0.2*i), every
+    `every_n`-th frame kept: (B, F, 192, 280, 3) uint8, made on 8 host
+    threads."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
-    import bench
-
     def one(i):
-        return bench.synth_clip(seconds=seconds, phase=0.2 * i)[::every_n]
+        return synth_clip(seconds=seconds, phase=0.2 * i)[::every_n]
 
     with ThreadPoolExecutor(8) as pool:
         return np.stack(list(pool.map(one, range(B))))
@@ -695,7 +1028,7 @@ def check_vm(data, n_ops, levels, finals, what):
     padding op's cell).  finals: [(name, (32, 256) model bank)]."""
     import numpy as np
 
-    from iivision_tpu.sim import PlayerVM
+    from iivision_tpu_torch.sim import PlayerVM
 
     res = PlayerVM().decode(data)
     if not res.ok:
@@ -725,12 +1058,12 @@ def run_batch(dev, B: int = 32, seconds: float = 10.0):
     import numpy as np
     import torch
 
-    from iivision_tpu.palettes import Palette
-    from iivision_tpu.stream.emit_fast import emit_stream_fast
-    from iivision_tpu.video_mode import VideoMode
     from iivision_tpu_torch import encoder
-    from iivision_tpu_torch.ops import distance, editdist, subop
+    from iivision_tpu_torch.ops import body, chunk_start, distance
+    from iivision_tpu_torch.palettes import Palette
     from iivision_tpu_torch.parallel import mesh
+    from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
+    from iivision_tpu_torch.video_mode import VideoMode
 
     mode = VideoMode.DHGR
     t0 = time.time()
@@ -752,14 +1085,13 @@ def run_batch(dev, B: int = 32, seconds: float = 10.0):
         torch.as_tensor(src[:, :n_enc]).to(dev), mode, Palette.NTSC)
     torch.cuda.synchronize()
     t1 = time.time()
-    launched = (editdist.dist_pairs_elementwise.launches
-                + subop.sub_op_chain.launches)
+    launched = chunk_start.chunk_start.launches + body.encode_body.launches
     ops_b, main_b, aux_b = mesh.encode_movies_batch(
         dist, lanes_b, bytes_b, plan, mode, seeds=list(range(B)))
     torch.cuda.synchronize()
     t2 = time.time()
-    launched = (editdist.dist_pairs_elementwise.launches
-                + subop.sub_op_chain.launches) - launched
+    launched = (chunk_start.chunk_start.launches
+                + body.encode_body.launches) - launched
     flat_b = mesh.fetch_ops_compact(ops_b, plan)
     streams = [emit_stream_fast(flat_b[i], levels, mode) for i in range(B)]
     t3 = time.time()
@@ -795,14 +1127,11 @@ def run_cli_mixed(dev):
     batch's plan."""
     import numpy as np
 
-    from iivision_tpu import frames
-    from iivision_tpu.palettes import Palette
-    from iivision_tpu.stream.emit_fast import emit_stream_fast
-    from iivision_tpu.video_mode import VideoMode
-    from iivision_tpu_torch import cli, encoder
+    from iivision_tpu_torch import cli, encoder, frames
     from iivision_tpu_torch.ops import distance
-
-    import bench
+    from iivision_tpu_torch.palettes import Palette
+    from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
+    from iivision_tpu_torch.video_mode import VideoMode
 
     mode = VideoMode.DHGR
     lengths = (10.0, 6.0, 3.0)
@@ -810,7 +1139,7 @@ def run_cli_mixed(dev):
         clips = []
         for i, sec in enumerate(lengths):
             path = os.path.join(tmp, "clip%d.npz" % i)
-            np.savez(path, frames=bench.synth_clip(seconds=sec, phase=i),
+            np.savez(path, frames=synth_clip(seconds=sec, phase=i),
                      frame_rate=30.0)
             clips.append(path)
         out_dir = os.path.join(tmp, "out")
@@ -862,16 +1191,14 @@ def run_quality(dev):
     content, replayed and scored by the port's quality module.  Each mean
     error is held to its committed baseline row (<= 1.01x; final error
     <= 1.02x + 0.05), and joint must beat the default rule's baseline."""
-    from iivision_tpu.video_mode import VideoMode
     from iivision_tpu_torch import encoder, quality
     from iivision_tpu_torch.movie import Movie
-
-    import bench
+    from iivision_tpu_torch.video_mode import VideoMode
 
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "tests", "data", "quality_baseline.json")) as f:
         rows = json.load(f)["rows"]
-    rgb = bench.synth_clip(seconds=5.0)
+    rgb = synth_clip(seconds=5.0)
     means = {}
     for joint in (False, True):
         m = Movie(frames_source=rgb, audio_source=tone_levels(dev, 5.0),
@@ -899,30 +1226,51 @@ def run_quality(dev):
                              "rule")
 
 
-def trace_encodes(dev, seconds: float = 1.0, B: int = 32):
-    """torch.profiler over two 1 s DHGR encodes at k=16 j=4, solo and a
-    batch of B, on ingested targets: device busy share (kernel time over
-    encode wall), kernel launches per plan step, and the device kernels
-    that launch most."""
+def profiled_kernels(prof):
+    """{kernel name (first 60 chars): (device launches, device us)} of a
+    torch.profiler run, and the host's kernel-launch calls."""
+    import torch
+
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(e, "device_time", None)
+            t = e.cuda_time if t is None else t
+            n, us = by_name.get(e.name[:60], (0, 0.0))
+            by_name[e.name[:60]] = (n + 1, us + t)
+    launches = sum(1 for e in prof.events() if e.name in (
+        "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
+    return by_name, launches
+
+
+def trace_encodes(dev, report, seconds: float = 1.0, B: int = 32):
+    """torch.profiler over 1 s DHGR encodes on ingested targets - solo and
+    a batch of B at k=16 j=4, solo at k=8 j=1 -: device busy share (kernel
+    time over encode wall), kernel launches per plan step, and the device
+    kernels that launch most.  Then the profiler's per-launch device time
+    of the body kernel and of kernel B (50 launches at the DHGR k=8 j=1
+    shape) beside the event timer's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from iivision_tpu.palettes import Palette
-    from iivision_tpu.video_mode import VideoMode
     from iivision_tpu_torch import encoder
-    from iivision_tpu_torch.ops import distance
+    from iivision_tpu_torch.ops import distance, subop
+    from iivision_tpu_torch.palettes import Palette
     from iivision_tpu_torch.parallel import mesh
+    from iivision_tpu_torch.video_mode import VideoMode
 
     mode = VideoMode.DHGR
     src = torch.as_tensor(synth_clips(B, seconds, every_n=2)).to(dev)
     lanes_b, bytes_b = mesh.ingest_movies_batch(src, mode, Palette.NTSC)
-    plan, _ = encoder.plan_movie(
-        n_frames=int(seconds * 30), n_audio_ticks=int(seconds * 14700),
-        input_frame_rate=30.0, ticks_per_second=14700.0,
-        every_n_video_frames=2, mode=mode, k=16, j=4)
     dist = distance.ComputedDistance(mode, Palette.NTSC, device=dev)
-    S = len(plan.step_frame)
-    for tag, nb in (("solo", 1), ("batch", B)):
+    body_us = None
+    for tag, nb, k, j in (("solo", 1, 16, 4), ("batch", B, 16, 4),
+                          ("solo", 1, 8, 1)):
+        plan, _ = encoder.plan_movie(
+            n_frames=int(seconds * 30), n_audio_ticks=int(seconds * 14700),
+            input_frame_rate=30.0, ticks_per_second=14700.0,
+            every_n_video_frames=2, mode=mode, k=k, j=j)
+        S = len(plan.step_frame)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -931,26 +1279,45 @@ def trace_encodes(dev, seconds: float = 1.0, B: int = 32):
                                   mode, list(range(nb)))
             torch.cuda.synchronize()
             wall = time.time() - t0
-        dev_us, kernels, by_name = 0.0, 0, {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                t = getattr(e, "device_time", None)
-                t = e.cuda_time if t is None else t
-                dev_us += t
-                kernels += 1
-                n, us = by_name.get(e.name[:60], (0, 0.0))
-                by_name[e.name[:60]] = (n + 1, us + t)
-        launches = sum(1 for e in prof.events() if e.name in (
-            "cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"))
-        print("trace %s B=%d %gs k=16 j=4: plan_steps=%d encode_s=%.3f "
-              "device_kernel_s=%.4f busy_share=%.4f device_kernels=%d "
-              "launches=%d launches_per_step=%.2f" % (
-                  tag, nb, seconds, S, wall, dev_us / 1e6,
-                  dev_us / 1e6 / wall, kernels, launches, launches / S))
+        by_name, launches = profiled_kernels(prof)
+        dev_us = sum(us for _, us in by_name.values())
+        kernels = sum(n for n, _ in by_name.values())
+        print("trace %s B=%d %gs k=%d j=%d: plan_steps=%d bodies=%d "
+              "encode_s=%.3f device_kernel_s=%.4f busy_share=%.4f "
+              "device_kernels=%d launches=%d launches_per_step=%.2f" % (
+                  tag, nb, seconds, k, j, S, S // plan.chunk_steps, wall,
+                  dev_us / 1e6, dev_us / 1e6 / wall, kernels, launches,
+                  launches / S))
         for name, (n, us) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:6]:
-            print("  %s kernel %s: per_step=%.2f device_ms=%.3f" % (
-                tag, name, n / S, us / 1e3))
+            print("  %s kernel %s: per_step=%.2f device_ms=%.3f "
+                  "us_per_launch=%.2f" % (tag, name, n / S, us / 1e3,
+                                          us / n))
+            if nb == 1 and k == 8 and "encode_body" in name:
+                body_us = us / n
+    if body_us is not None:
+        print("encode_body DHGR k=8 j=1 B=1: profiler us_per_launch=%.2f "
+              "(a whole clip's bodies) against the event timer's %.2f us "
+              "(one body, repeated)" % (body_us,
+                                        report["encode_body"]["ms"] * 1e3))
+
+    rows, sc_rows, table, nonce, pages, pad = subop_inputs(
+        dev, mode, 8, 1, 19)
+    out = torch.empty((1, 1, 8, 6), dtype=torch.uint8, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(50):
+            subop.sub_op_chain(rows, sc_rows, table, nonce, pages, 5, pad,
+                               out)
+        torch.cuda.synchronize()
+    by_name, _ = profiled_kernels(prof)
+    n, us = sum(v[0] for k_, v in by_name.items() if "subop_chain" in k_), \
+        sum(v[1] for k_, v in by_name.items() if "subop_chain" in k_)
+    entry = report["subop_chain"]
+    entry["profiler_ms"] = us / max(n, 1) / 1e3
+    print("kernel B DHGR k=8 j=1 B=1: profiler device_ms=%.4f (%d launches) "
+          "event timer ms=%.4f wrapper_ms=%.4f" % (
+              entry["profiler_ms"], n, entry["ms"], entry["wrapper_ms"]))
 
 
 def build_and_check_lut(dev):

@@ -1,17 +1,18 @@
 """nvcc build of the port's CUDA kernels, loaded with ctypes.
 
 Every `csrc/*.cu` source compiles, with a plain C interface and no
-PyTorch headers, into one shared library for Hopper:
+PyTorch headers, into an object for Hopper; the nvcc processes of all
+sources run at once, then one link makes the shared library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas -v -o _build/libiiv_kernels-<hash>.so
-         csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o
+    nvcc -shared -o _build/libiiv_kernels-<hash>.so *.o
 
 The library lands in `iivision_tpu_torch/_build/`, named by a hash of the
-sources and flags, so an edited kernel never loads a stale binary; ptxas's
-per-kernel register and shared-memory report is kept beside it as
-`<name>.log`.  The build runs at first use (a few seconds), never at
-import.  A failed build raises.
+sources (headers `csrc/*.cuh` included) and flags, so an edited kernel
+never loads a stale binary; ptxas's per-kernel register and shared-memory
+report is kept beside it as `<name>.log`.  The build runs at first use (a
+few seconds), never at import.  A failed build raises.
 """
 
 import ctypes
@@ -28,7 +29,7 @@ PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,11 +41,19 @@ SIGNATURES = {
     "iiv_subop_chain": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                         _P],
     "iiv_subop_bench": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "iiv_chunk_start": [_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P],
+    "iiv_encode_body": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "iiv_threefry_uniform": [_P, _I, _P, _I, _I, _I, _P, _P, _P],
 }
 
 
 def sources():
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def headers():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
 def _nvcc() -> str:
@@ -61,7 +70,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, "libiiv_kernels-%s.so" % h.hexdigest()[:16])
@@ -78,20 +87,28 @@ def build() -> dict:
         log = open(log_path).read() if os.path.exists(log_path) else ""
         return dict(path=out, seconds=0.0, built=False, log=log)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.time()
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()],
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        nvcc = _nvcc()
+        objs = [os.path.join(tmp, os.path.basename(src)[:-3] + ".o")
+                for src in sources()]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources(), objs)]
+        logs = [p.communicate()[0] for p in procs]
+        log = "".join(logs)
+        failed = [(src, p.returncode) for src, p in zip(sources(), procs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed on %s:\n%s" % (failed, log))
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError("nvcc failed (%d):\n%s%s" % (
+            raise RuntimeError("nvcc link failed (%d):\n%s%s" % (
                 proc.returncode, proc.stdout, proc.stderr))
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    log = proc.stdout + proc.stderr
+        os.replace(lib, out)
     with open(log_path, "w") as f:
         f.write(log)
     return dict(path=out, seconds=time.time() - t0, built=True, log=log)

@@ -13,10 +13,16 @@ import argparse
 import json
 import os
 
-from iivision_tpu.cli import _default_out
-from iivision_tpu.palettes import Palette
-from iivision_tpu.video_mode import VideoMode
+from iivision_tpu_torch.palettes import Palette
 from iivision_tpu_torch.parallel.mesh import SHARDING_ITEM
+from iivision_tpu_torch.video_mode import VideoMode
+
+
+def _default_out(path: str) -> str:
+    """`<input sans extension>.a2m` (iivision_tpu/cli.py `_default_out`)."""
+    base = path.rstrip("/")
+    stem = base.rsplit(".", 1)[0] if "." in os.path.basename(base) else base
+    return stem + ".a2m"
 
 
 def mesh_cards(args) -> int:
@@ -157,11 +163,10 @@ def transcode_batch(args):
 
     import numpy as np
 
-    from iivision_tpu import frames
-    from iivision_tpu.stream.emit_fast import emit_stream_fast
-    from iivision_tpu_torch import audio as audio_mod, require_device
+    from iivision_tpu_torch import audio as audio_mod, frames, require_device
     from iivision_tpu_torch.ops import distance
     from iivision_tpu_torch.parallel import mesh as pmesh
+    from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
 
     dev = require_device(args.device)
     mode = VideoMode[args.video_mode]

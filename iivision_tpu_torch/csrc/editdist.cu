@@ -2,21 +2,15 @@
 // NTSC colour-code strings, for Hopper (sm_90a).
 //
 // Replaces iivision_tpu/ops/editdist.py:_editdist_kernel_factory (the Pallas
-// TPU kernel launched by pallas_distance), and serves the encoder's
-// chunk-start diff (iivision_tpu/ops/distance.py:dist_pixel_pairs).
+// TPU kernel launched by pallas_distance), and computes the elementwise form
+// of iivision_tpu/ops/distance.py:dist_pixel_pairs.
 //
-// For strings a, b of equal length L (10 for DHGR, 18 for HGR) over 16
-// colour codes, with a symmetric 16x16 integer cost matrix C:
-//
-//   D[0] = C[a0, b0]
-//   D[k] = min(D[k-1] + C[ak, bk],
-//              D[k-2] + 1   if a_k == b_{k-1} and a_{k-1} == b_k),  D[-1] = 0
-//
-// Every value is an integer below 2^16, so int32 registers give exactly the
-// float32 result of the TPU kernel.  The TPU kernel built each step from
-// 16-wide one-hot matmuls because its only fast unit is the MXU; here each
-// step is one shared-memory cost lookup and a compare, so there are no
-// one-hots at all.
+// The recurrence (diag_dp, csrc/diag_dp.cuh) is the diagonal reduction of
+// the weighted Damerau-Levenshtein distance; every value is an integer
+// below 2^16, so int32 registers give exactly the float32 result of the TPU
+// kernel.  The TPU kernel built each step from 16-wide one-hot matmuls
+// because its only fast unit is the MXU; here each step is one
+// shared-memory cost lookup and a compare, so there are no one-hots at all.
 //
 // Two entries share the recurrence (diag_dp):
 //
@@ -28,38 +22,20 @@
 //   2.7e8 pairs x L steps of shared-memory lookups, compares and adds,
 //   which on this simple form take longer than the stores; consecutive
 //   threads write consecutive uint16s so every warp's stores coalesce.
-// - dist_pairs: elementwise pairs (..., L) -> int32, one thread per pair.
-//   The encoder's diff is 2 lanes x 32 pages x 128 columns = 8192 pairs per
-//   chunk: a few microseconds of work, bound by launch latency.
+// - dist_pairs: elementwise pairs (..., L) -> int32, one thread per pair:
+//   the store-cost build and the quality scorer.  (The encoder's chunk-start
+//   diff runs the same recurrence inside chunk_start.cu.)
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "diag_dp.cuh"
 
 namespace {
 
 constexpr int kMaxL = 32;   // longest string accepted (DHGR 10, HGR 18)
 constexpr int kTileN = 64;  // B strings (columns) per block: threadIdx.x
 constexpr int kTileM = 8;   // A strings (rows) per block: threadIdx.y
-
-// The recurrence over codes a[k * sa], b[k * sb], k < L; sub is the
-// row-major 16x16 cost matrix (in shared memory).  Codes are masked to
-// 4 bits so no input can index outside it.
-template <typename T>
-__device__ __forceinline__ int diag_dp(const T* a, int sa, const T* b, int sb,
-                                       int L, const int* sub) {
-  int ap = a[0] & 15, bp = b[0] & 15;
-  int d_m2 = 0, d_m1 = sub[ap * 16 + bp];
-  for (int k = 1; k < L; ++k) {
-    const int ak = a[k * sa] & 15, bk = b[k * sb] & 15;
-    int dk = d_m1 + sub[ak * 16 + bk];
-    if (ak == bp && ap == bk) dk = min(dk, d_m2 + 1);
-    d_m2 = d_m1;
-    d_m1 = dk;
-    ap = ak;
-    bp = bk;
-  }
-  return d_m1;
-}
 
 __global__ void editdist_tile_kernel(const int32_t* __restrict__ a, int n_a,
                                      const int32_t* __restrict__ b, int n_b,

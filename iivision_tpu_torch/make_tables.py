@@ -6,10 +6,10 @@
 
 - `--what luts`: the reference-layout edit-distance LUTs through kernel A's
   all-pairs entry (upper triangle, symmetrised at load;
-  `editdist.save_tables`, shared).
+  `editdist.save_tables`).
 - `--what store_cost`: the encoder's store-cost tables for `--models`,
   through kernel A's elementwise entry (window) or the yiq window sums
-  (`distance.save_store_cost`, shared).  The encoder builds a missing
+  (`distance.save_store_cost`).  The encoder builds a missing
   table itself on first use (mono has none shipped).
 
 Both write the same npz files as the JAX package.
@@ -21,10 +21,9 @@ import time
 
 import torch
 
-from iivision_tpu.palettes import Palette
-from iivision_tpu.video_mode import VideoMode
-
-from iivision_tpu_torch import require_device
+from iivision_tpu_torch import DATA_DIR, require_device
+from iivision_tpu_torch.palettes import Palette
+from iivision_tpu_torch.video_mode import VideoMode
 
 
 def _sync(device):
@@ -37,7 +36,8 @@ def main(args=None):
         description="Generate (D)HGR distance-model artifacts "
                     "(PyTorch + CUDA).")
     parser.add_argument("--data_dir", default=None,
-                        help="Output directory (default: package data/).")
+                        help="Output directory (default: the JAX package's "
+                             "data/ directory, DATA_DIR).")
     parser.add_argument("--modes", nargs="+", default=["HGR", "DHGR"],
                         choices=[m.name for m in VideoMode])
     parser.add_argument("--palettes", nargs="+", default=["NTSC", "IIGS"],
@@ -52,13 +52,12 @@ def main(args=None):
     a = parser.parse_args(args)
     device = require_device(a.device)
 
-    from iivision_tpu.ops.distance import DATA_DIR, _user_cache_dir
     from iivision_tpu_torch.ops import distance, editdist
 
     if a.data_dir is None and not os.access(DATA_DIR, os.W_OK):
-        a.data_dir = _user_cache_dir()
+        a.data_dir = distance._user_cache_dir()
         os.makedirs(a.data_dir, exist_ok=True)
-        print("package data/ not writable; writing artifacts to %s"
+        print("data/ not writable; writing artifacts to %s"
               % a.data_dir)
 
     for pal_name in a.palettes:

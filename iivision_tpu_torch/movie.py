@@ -3,9 +3,8 @@ iivision_tpu/movie.py, solo path), DHGR or HGR, with the window, yiq or
 mono colour model and the default or joint content rule.
 
 Host ingest (`frames.ingest`: decode, C++ resize, quantize and pack), the
-opcode plan, op flattening and stream emission are the JAX package's own,
-shared; the encode and the audio resample run here on
-`device`.  The final screens are kept for playback verification.
+opcode plan, op flattening and stream emission run on the host; the
+encode and the audio resample run on `device`.  The final screens are kept for playback verification.
 """
 
 import time
@@ -13,14 +12,12 @@ from typing import Optional
 
 import numpy as np
 
-from iivision_tpu import frames
-from iivision_tpu.palettes import Palette
-from iivision_tpu.stream.emit_fast import emit_stream_fast
-from iivision_tpu.video_mode import VideoMode
-
 from iivision_tpu_torch import audio as audio_mod
-from iivision_tpu_torch import encoder, require_device
+from iivision_tpu_torch import encoder, frames, require_device
 from iivision_tpu_torch.ops import distance
+from iivision_tpu_torch.palettes import Palette, require_palette
+from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
+from iivision_tpu_torch.video_mode import VideoMode, require_mode
 
 
 class Movie:
@@ -48,8 +45,8 @@ class Movie:
         self.device = require_device(device)
         self.every_n_video_frames = every_n_video_frames
         self.max_bytes_out = max_bytes_out
-        self.video_mode = video_mode
-        self.palette = palette
+        self.video_mode = require_mode(video_mode)
+        self.palette = require_palette(palette)
         self.k = k
         self.j = j
         self.seed = seed

@@ -13,27 +13,28 @@ iivision_tpu/ops/distance.py).
   the JAX package: (16, 16) is the window (or mono) edit distance,
   (n_lanes, L, 128, 128) the yiq sums.
 - `build_store_cost` / `store_cost_table`: the int16 store-cost tables,
-  loaded from the package's shipped npz files or the user cache, or built
-  and saved there.
+  loaded from the shipped npz files (under `DATA_DIR`, read by path) or
+  the user cache, or built and saved there.
 - `ComputedDistance`: what the encoder holds per (mode, palette, model).
 
 Every distance is an integer below 2^16, so int32 here equals the JAX
 package's float32 exactly.
 """
 
+import functools
 import os
 
 import numpy as np
 import torch
 
-from iivision_tpu.ops.distance import (  # noqa: F401
-    _user_cache_dir, n_contents, save_store_cost, store_cost_path, sub16,
-    sub16_mono)
-from iivision_tpu.palettes import Palette
-from iivision_tpu.screen import hgr_to_dots, spec_for_mode
-from iivision_tpu.video_mode import VideoMode
+from iivision_tpu_torch import DATA_DIR, palettes
+from iivision_tpu_torch.palettes import Palette, require_palette
+from iivision_tpu_torch.screen import hgr_to_dots, spec_for_mode
+from iivision_tpu_torch.video_mode import VideoMode, require_mode
 
 TRANSPOSE_COST = 1
+# the shipped tables' version tag (iivision_tpu/ops/distance.py)
+STORE_COST_VERSION = 1
 # (t, c) pairs per distance call in the store-cost build: one call per
 # DHGR lane, four per HGR lane; bounds the (pairs, L) code transients
 BUILD_PAIRS = 1 << 20
@@ -130,12 +131,71 @@ def dist_lane_pairs(va: torch.Tensor, vb: torch.Tensor, mode: VideoMode,
                             lane_pixels(vb, mode, lane), sub)
 
 
+@functools.lru_cache(None)
+def sub16(palette: Palette) -> np.ndarray:
+    """(16, 16) float32 CIE2000 costs between the palette's colours."""
+    return palettes.diff_matrix(palette).astype(np.float32)
+
+
+@functools.lru_cache(None)
+def sub16_mono() -> np.ndarray:
+    """(16, 16) float32 monochrome basis: popcount(a ^ b), the number of
+    differing dots of two 4-dot windows, scaled x25 so magnitudes compare
+    with the CIEDE2000 basis; palette-independent."""
+    a = np.arange(16)
+    ham = np.unpackbits(
+        (a[:, None] ^ a[None, :]).astype(np.uint8)[..., None],
+        axis=-1).sum(axis=-1)
+    return (ham * 25).astype(np.float32)
+
+
+def n_contents(mode: VideoMode) -> int:
+    """Distinct content bytes a store can carry: DHGR bytes are 7-bit,
+    HGR full 8-bit."""
+    return 128 if require_mode(mode) == VideoMode.DHGR else 256
+
+
+def store_cost_path(mode: VideoMode, palette: Palette, model: str,
+                    data_dir=None) -> str:
+    """Path of a store-cost table: under `data_dir`, or the shipped ones
+    under DATA_DIR."""
+    return os.path.join(
+        data_dir or DATA_DIR, "store_cost",
+        "v%d_%s_%s_%s.npz" % (STORE_COST_VERSION, mode.name,
+                              palette.name, model))
+
+
+def _user_cache_dir() -> str:
+    return os.path.join(
+        os.environ.get("XDG_CACHE_HOME",
+                       os.path.expanduser("~/.cache")), "iivision_tpu")
+
+
+def save_store_cost(cost: np.ndarray, mode: VideoMode, palette: Palette,
+                    model: str, data_dir=None) -> str:
+    """Write a table in the JAX package's npz layout: exact integers as
+    uint16 (window, mono), float32 otherwise (yiq)."""
+    path = store_cost_path(mode, palette, model, data_dir)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if model in ("window", "mono"):
+        if float(np.abs(cost - np.round(cost)).max()) != 0.0:
+            raise ValueError("%s store costs are not integers" % model)
+        out = cost.astype(np.uint16)
+    else:
+        out = cost.astype(np.float32)
+    tmp = path + ".tmp.%d" % os.getpid()
+    with open(tmp, "wb") as f:
+        np.savez_compressed(f, cost=out)
+    os.replace(tmp, path)
+    return path
+
+
 def sub_for(mode: VideoMode, palette: Palette,
             model: str = "window") -> np.ndarray:
     """float32 cost basis for `model`: 'window' (the reference's nominal
     colours), 'yiq' (NTSC composite) or 'mono' (dot-level Hamming)."""
     if model == "yiq":
-        from iivision_tpu.ops import yiq
+        from iivision_tpu_torch.ops import yiq
 
         return yiq.lane_subs(mode, palette)
     if model == "mono":
@@ -160,10 +220,10 @@ def store_cost_rows(mode: VideoMode, lane: int, t: torch.Tensor,
     return dist_lane_pairs(new, t.expand_as(new), mode, lane, sub)
 
 
-def build_store_cost(mode: VideoMode, palette: Palette,
-                     model: str = "window", device="cpu") -> torch.Tensor:
+def build_store_cost(mode: VideoMode, palette: Palette, model: str,
+                     device) -> torch.Tensor:
     """(n_lanes, 2^B, C) int32 store costs built on `device`
-    (iivision_tpu.ops.distance._build_store_cost).  The window and mono
+    (iivision_tpu/ops/distance.py `_build_store_cost`).  The window and mono
     models run kernel A's elementwise entry on a card and the plain
     recurrence on the CPU; yiq runs the window gather-sums."""
     spec = spec_for_mode(mode)
@@ -181,8 +241,8 @@ def build_store_cost(mode: VideoMode, palette: Palette,
     return out
 
 
-def store_cost_table(mode: VideoMode, palette: Palette,
-                     model: str = "window", device="cpu") -> np.ndarray:
+def store_cost_table(mode: VideoMode, palette: Palette, model: str,
+                     device) -> np.ndarray:
     """(n_lanes, 2^B, n_contents) int16 store costs.
 
     Searches the package's shipped tables, then the user cache; on a miss
@@ -214,8 +274,8 @@ class ComputedDistance:
 
     def __init__(self, mode: VideoMode, palette: Palette,
                  model: str = "window", *, device):
-        self.mode = mode
-        self.palette = palette
+        self.mode = require_mode(mode)
+        self.palette = require_palette(palette)
         self.model = model
         self.device = torch.device(device)
         self.n_contents = n_contents(mode)

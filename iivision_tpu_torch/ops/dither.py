@@ -17,18 +17,144 @@ torch, so they are written again here on tensors:
   `dhgr_codes_to_memory`, `hgr_desired_dots`, `hgr_dots_to_bytes`,
   `hgr_bytes_to_memory`: integer-only, bit-exact.
 
-The Bayer matrix, the palettes' Lab values and the HGR colour sets are the
-JAX package's own.
+The host quantizers in front of the host ingest (`quantize_ordered_host`,
+`dhgr_pack_host`, `quantize_hgr_host`, `quantize_error_diffusion`) are
+numpy and C++ (sim/csrc/ingest_fast.cpp, dither.cpp), copied from the JAX
+module with the same names, as are the Bayer matrix, the palettes' Lab
+values and the HGR colour sets.
 """
+
+import functools
+import os
+from typing import Optional
 
 import numpy as np
 import torch
 
-from iivision_tpu import palettes
-from iivision_tpu.ops.dither import (
-    DHGR_W, HGR_COLOURS_P0, HGR_COLOURS_P1, _bayer_matrix, _palette_lab)
-from iivision_tpu.palettes import Palette
-from iivision_tpu.video_mode import VideoMode
+from iivision_tpu_torch import palettes
+from iivision_tpu_torch.palettes import Palette
+from iivision_tpu_torch.video_mode import VideoMode
+
+DHGR_W, DHGR_H = 140, 192
+MONO_W = 560  # full dot resolution of one scanline (DHGR and HGR alike)
+# HGR nominal colours reachable per palette bit (codes in HGR code space):
+# palette off: black, violet, green, white; on: black, med_blue, orange,
+# white
+HGR_COLOURS_P0 = (0b0000, 0b0011, 0b1100, 0b1111)
+HGR_COLOURS_P1 = (0b0000, 0b0110, 0b1001, 0b1111)
+# channel bin resolution of the host fused LUT (16 MB table)
+FUSED_LUT_BITS = 6
+
+
+def _bayer_matrix(n: int = 8) -> np.ndarray:
+    m = np.array([[0.0]])
+    while m.shape[0] < n:
+        m = np.block([[4 * m + 0, 4 * m + 2], [4 * m + 3, 4 * m + 1]])
+    return (m + 0.5) / (m.size)  # (n, n) in (0, 1)
+
+
+@functools.lru_cache(None)
+def _palette_lab(palette: Palette) -> np.ndarray:
+    return palettes.srgb_to_lab(palettes.palette_rgb_array(palette))
+
+
+def _lut_cache_path(tag: str) -> str:
+    root = os.path.join(
+        os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
+        "iivision_tpu")
+    return os.path.join(root, "quantize_lut_%s.npy" % tag)
+
+
+@functools.lru_cache(None)
+def _host_fused_lut(palette: Palette, codes: Optional[tuple] = None,
+                    strength: float = 24.0,
+                    bits: int = FUSED_LUT_BITS) -> np.ndarray:
+    """(64 << (3*bits),) uint8 fused quantize LUT: entry [cell, r, g, b]
+    (channels binned to `bits`) is the nearest palette code (among
+    `codes`, or all 16) in Lab space to the bin-centre RGB perturbed by
+    Bayer cell `cell`'s threshold.  Disk-cached in the user cache."""
+    n = 1 << bits
+    tag = "fused%d_%s_%s_%g" % (
+        bits, palette.name,
+        "all" if codes is None else "".join("%x" % c for c in codes),
+        strength)
+    path = _lut_cache_path(tag)
+    if os.path.exists(path):
+        return np.load(path)
+    lab_pal = _palette_lab(palette).astype(np.float64)
+    sel = np.arange(16) if codes is None else np.asarray(codes)
+    pal = lab_pal[sel]
+    bayer = _bayer_matrix(8).reshape(64)
+    step = 256 // n
+    bins = np.arange(n) * step + (step - 1) / 2.0
+    r, g, b = np.meshgrid(bins, bins, bins, indexing="ij")
+    rgb = np.stack([r, g, b], axis=-1).reshape(-1, 3)  # (n^3, 3)
+    lut = np.empty((64, n * n * n), np.uint8)
+    for cell in range(64):
+        off = (bayer[cell] - 0.5) * strength
+        pert = np.clip(rgb + off, 0.0, 255.0)
+        lab = palettes.srgb_to_lab(pert)
+        d = (-2.0 * lab @ pal.T) + np.sum(pal ** 2, axis=1)
+        lut[cell] = sel[np.argmin(d, axis=1)]
+    lut = lut.reshape(-1)
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = path + ".%d.tmp" % os.getpid()
+        with open(tmp, "wb") as f:
+            np.save(f, lut)
+        os.replace(tmp, path)
+    except OSError:
+        pass
+    return lut
+
+
+def quantize_ordered_host(rgb: np.ndarray, palette: Palette,
+                          strength: float = 24.0) -> np.ndarray:
+    """Host ordered-dither quantizer (C++ fused LUT): (..., 192, 140, 3)
+    uint8 -> (..., 192, 140) uint8 codes."""
+    from iivision_tpu_torch.sim import native
+
+    return native.quantize_fused(np.ascontiguousarray(rgb, np.uint8),
+                                 _host_fused_lut(palette, None, strength))
+
+
+def dhgr_pack_host(codes: np.ndarray):
+    """(..., 192, 140) codes -> (main, aux) (..., 32, 256) uint8 (C++),
+    bit-identical to `dhgr_codes_to_memory`."""
+    from iivision_tpu_torch.sim import native
+
+    return native.dhgr_pack(np.ascontiguousarray(codes, np.uint8))
+
+
+def quantize_hgr_host(rgb: np.ndarray, palette: Palette) -> np.ndarray:
+    """Host HGR quantizer: 6-colour fused-LUT dither + C++ dot fitting,
+    (..., 192, 140, 3) uint8 -> (..., 32, 256) uint8 main."""
+    from iivision_tpu_torch.sim import native
+
+    hgr_codes = tuple(sorted(set(HGR_COLOURS_P0) | set(HGR_COLOURS_P1)))
+    codes = native.quantize_fused(np.ascontiguousarray(rgb, np.uint8),
+                                  _host_fused_lut(palette, hgr_codes))
+    return native.hgr_fit(codes)
+
+
+def quantize_error_diffusion(rgb: np.ndarray, palette: Palette,
+                             kernel: str = "buckels") -> np.ndarray:
+    """Error-diffusion quantization on the host (C++): serpentine float
+    diffusion ('floyd', 'buckels', 'atkinson', 'jarvis') or bmp2dhr's
+    raster mechanics ('d1'..'d9').  rgb: (192, 140, 3).  Returns (192, 140)
+    int32 colour codes."""
+    from iivision_tpu_torch.sim import native
+
+    if kernel.startswith("d") and kernel[1:].isdigit():
+        d = int(kernel[1:])
+        if not 1 <= d <= 9:
+            raise ValueError("unknown bmp2dhr dither %r (d1..d9)" % kernel)
+        return native.dither_bmp2dhr(
+            np.ascontiguousarray(np.clip(rgb, 0, 255), dtype=np.uint8),
+            palettes.palette_rgb_array(palette).astype(np.uint8), d)
+    return native.dither(np.ascontiguousarray(rgb, dtype=np.float32),
+                         palettes.palette_rgb_array(palette), kernel)
+
 
 _BIT_WEIGHTS = [1 << k for k in range(7)]
 

@@ -17,24 +17,99 @@ it launches the kernel (csrc/editdist.cu) or raises.  Each wrapper counts
 its kernel launches in its `launches` attribute.
 
 The code strings, the cost matrix, the scalar oracle and the npz writer
-are shared with the JAX package.
+are numpy copies of the JAX module's (same names).
 """
 
 import ctypes
+import functools
+import os
+from typing import Optional
 
 import numpy as np
 import torch
 
-from iivision_tpu.ops.editdist import (  # noqa: F401
-    dam_lev_scalar, lane_pixel_codes, save_tables, substitute_matrix)
-from iivision_tpu.palettes import Palette
-from iivision_tpu.screen import spec_for_mode
-from iivision_tpu.video_mode import VideoMode
-
-from iivision_tpu_torch import _build
+from iivision_tpu_torch import DATA_DIR, _build, colours, palettes
+from iivision_tpu_torch.palettes import Palette
+from iivision_tpu_torch.screen import spec_for_mode
+from iivision_tpu_torch.video_mode import VideoMode
 
 TRANSPOSE_COST = 1
+INDEL_COST = 100000
 MAX_L = 32  # longest code string kernel A accepts
+
+
+@functools.lru_cache(None)
+def lane_pixel_codes(mode: VideoMode, lane: int) -> np.ndarray:
+    """(2^MASKED_BITS, MASKED_DOTS) uint8 colour codes of every masked
+    value of a lane: the value expanded to display dots, then the sliding
+    NTSC window at the lane's clock phase."""
+    spec = spec_for_mode(mode)
+    vals = np.arange(1 << spec.MASKED_BITS, dtype=np.int64)
+    return colours.dots_to_pixels_vec(
+        spec.to_dots(vals, lane), num_bits=int(spec.MASKED_DOTS),
+        init_phase=spec.PHASES[lane]).astype(np.uint8)
+
+
+def substitute_matrix(palette: Palette) -> np.ndarray:
+    """(16, 16) int32 CIE2000 substitution costs."""
+    return palettes.diff_matrix(palette)
+
+
+def dam_lev_scalar(a, b, sub: np.ndarray,
+                   transpose_cost: float = TRANSPOSE_COST,
+                   indel_cost: float = INDEL_COST) -> float:
+    """Textbook weighted Damerau-Levenshtein (with the 'last seen' table):
+    the scalar oracle of the diagonal reduction, host-side, test use."""
+    la, lb = len(a), len(b)
+    maxdist = (la + lb) * indel_cost + 1
+    d = np.full((la + 2, lb + 2), maxdist, dtype=np.float64)
+    d[1, 1] = 0
+    for i in range(1, la + 1):
+        d[i + 1, 1] = i * indel_cost
+    for j in range(1, lb + 1):
+        d[1, j + 1] = j * indel_cost
+    da = {}
+    for i in range(1, la + 1):
+        db = 0
+        for j in range(1, lb + 1):
+            k = da.get(b[j - 1], 0)
+            l_ = db
+            if a[i - 1] == b[j - 1]:
+                cost = 0.0
+                db = j
+            else:
+                cost = float(sub[a[i - 1], b[j - 1]])
+            d[i + 1, j + 1] = min(
+                d[i, j] + cost,  # substitution
+                d[i + 1, j] + indel_cost,  # insertion
+                d[i, j + 1] + indel_cost,  # deletion
+                d[k, l_] + (i - k - 1) * indel_cost + transpose_cost
+                + (j - l_ - 1) * indel_cost,  # transposition
+            )
+        da[a[i - 1]] = i
+    return float(d[la + 1, lb + 1])
+
+
+def table_path(mode: VideoMode, palette: Palette,
+               data_dir: Optional[str] = None) -> str:
+    return os.path.join(
+        data_dir or DATA_DIR,
+        "%s_palette_%d_edit_distance.npz" % (spec_for_mode(mode).NAME,
+                                             palette.value))
+
+
+def save_tables(tables, mode: VideoMode, palette: Palette,
+                data_dir: Optional[str] = None) -> str:
+    """Save LUTs in the reference's npz layout (upper triangle only)."""
+    n = 1 << spec_for_mode(mode).MASKED_BITS
+    full = np.asarray(tables).reshape(len(tables), n, n)
+    tri = np.where(
+        np.arange(n)[:, None] > np.arange(n)[None, :], full, 0
+    ).astype(np.uint16)
+    path = table_path(mode, palette, data_dir)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez_compressed(path, edit_distance=tri.reshape(len(tables), n * n))
+    return path
 
 
 def dp_distance_tile(a_codes: torch.Tensor, b_codes: torch.Tensor,
@@ -179,7 +254,7 @@ def edit_distance_matrix(mode: VideoMode, palette: Palette, lane: int,
 def build_tables(mode: VideoMode, palette: Palette,
                  device) -> torch.Tensor:
     """(n_lanes, N*N) uint16 LUTs of a video mode on `device`, indexed by
-    (src << MASKED_BITS) + tgt (iivision_tpu.ops.editdist.build_tables).
+    (src << MASKED_BITS) + tgt (iivision_tpu/ops/editdist.py `build_tables`).
     Each lane's kernel launch writes straight into its slice."""
     spec = spec_for_mode(mode)
     n = 1 << spec.MASKED_BITS

@@ -17,7 +17,8 @@ add and shift, so no operation relies on integer wrap-around.  Keys are
 pairs of int64 tensors that broadcast, so one call derives the nonces of
 many steps at once; `step_nonces` does that for a block of encoder steps,
 for one key or for a (B,) batch of keys (`prng_keys`, the form of
-`jax.vmap(jax.random.PRNGKey)(seeds)`).
+`jax.vmap(jax.random.PRNGKey)(seeds)`).  The body kernel (csrc/body.cu)
+computes the same bits in uint32 registers from `key_words`.
 """
 
 import torch
@@ -62,6 +63,15 @@ def prng_keys(seeds, device) -> tuple:
     return (torch.zeros(len(seeds), dtype=torch.int64, device=device),
             torch.tensor([s & MASK32 for s in seeds], dtype=torch.int64,
                          device=device))
+
+
+def key_words(seeds, device) -> torch.Tensor:
+    """The keys of `prng_keys` as a (B, 2) int32 tensor holding the uint32
+    words (the body kernel's key input)."""
+    k1, k2 = prng_keys(seeds, device)
+    words = torch.stack([k1, k2], dim=1)
+    return torch.where(words >= 1 << 31, words - (1 << 32),
+                       words).to(torch.int32)
 
 
 def fold_in(key: tuple, data) -> tuple:

@@ -1,12 +1,155 @@
-"""Masked-lane derivation in torch (counterpart of iivision_tpu/screen.py).
+"""Apple II (D)HGR screen-memory model (counterpart of
+iivision_tpu/screen.py, with its numpy/jax.numpy array transforms written
+on torch tensors in exact int32).
 
-The address tables, `SCREEN_HOLES` and the DHGR/HGR spec classes stay in
-the JAX package's `screen` and are imported from there; only the array
-transforms that it runs through `jax.numpy` are written here, in exact
-int32.
+Screen state is the raw byte arrays, main and aux (32, 256) per frame: page
+p, offset o.  The packed "masked lanes" - the 13-bit (DHGR) / 14-bit (HGR)
+windows whose pixels a byte store influences - are derived from the bytes:
+
+DHGR, per column pair, 34 bits
+    [hdr:3][aux_even:7][main_even:7][aux_odd:7][main_odd:7][ftr:3]
+  hdr = top 3 bits of the previous column's main_odd; ftr = low 3 bits of
+  the next column's aux_even; masked lane o = bits [7o, 7o+13).
+
+HGR, per column pair, 22 bits
+    [hdr:3][even:8][odd_pal:1][odd_data:7][ftr:3]
+  hdr = {odd.5, odd.6, odd.7} of the previous column's odd byte;
+  ftr = {even.7, even.0, even.1} of the next column's even byte;
+  masked lane 0 = bits [0, 14), lane 1 = bits [8, 22).
+
+Headers and footers never cross a page boundary: column 0's header and
+column 127's footer are zero.
 """
 
+from typing import Tuple
+
+import numpy as np
 import torch
+
+from iivision_tpu_torch.video_mode import VideoMode, require_mode
+
+
+def y_to_base_addr(y: int, page: int = 0) -> int:
+    """Base memory address of screen row y on the given screen page."""
+    a = y // 64
+    d = y - 64 * a
+    b = d // 8
+    c = d - 8 * b
+    return 8192 * (page + 1) + 1024 * c + 128 * b + 40 * a
+
+
+def _screen_holes() -> np.ndarray:
+    holes = np.full((32, 256), True, dtype=bool)
+    for y in range(192):
+        base = y_to_base_addr(y)
+        holes[(base >> 8) - 32, (base & 0xFF):(base & 0xFF) + 40] = False
+    return holes
+
+
+# (32, 256) bool: page offsets that map to no screen byte (the 8 bytes that
+# pad each 120-byte half page to 128)
+SCREEN_HOLES = _screen_holes()
+
+
+class DHGR:
+    """DHGR packed-representation constants."""
+    NAME = "DHGR"
+    MASKED_BITS = 13
+    MASKED_DOTS = 10
+    N_LANES = 4
+    # NTSC clock phase at the first masked bit of each lane
+    PHASES = (1, 0, 3, 2)
+
+    @staticmethod
+    def bank_lanes(is_aux: bool) -> Tuple[int, int]:
+        """Lane indices for (even, odd) page offsets of a memory bank."""
+        return (0, 2) if is_aux else (1, 3)
+
+    @staticmethod
+    def to_dots(masked_val, byte_offset: int):
+        """The 13-bit masked lane is already the display dot sequence."""
+        return masked_val
+
+    @staticmethod
+    def masked_update(lane_vals, content):
+        """Store a screen byte into lane-local masked values (all lanes
+        alike: content occupies window bits [3, 10))."""
+        return (lane_vals & ~(0x7F << 3)) | ((content & 0x7F) << 3)
+
+
+class HGR:
+    """HGR packed-representation constants."""
+    NAME = "HGR"
+    MASKED_BITS = 14
+    MASKED_DOTS = 18
+    N_LANES = 2
+    PHASES = (1, 3)
+
+    @staticmethod
+    def bank_lanes(is_aux: bool) -> Tuple[int, int]:
+        if is_aux:
+            raise ValueError("HGR has no aux bank")
+        return (0, 1)
+
+    @staticmethod
+    def masked_update(lane_vals, content, lane: int = 0):
+        """Store a screen byte into lane-local masked values: lane 0 (even
+        byte) takes all 8 bits at window bits [3, 11); lane 1 (odd byte)
+        the palette bit at window bit 3 and the data bits at [4, 11)."""
+        if lane == 0:
+            return (lane_vals & ~(0xFF << 3)) | ((content & 0xFF) << 3)
+        shifted = ((content & 0x7F) << 1) | ((content & 0x80) >> 7)
+        return (lane_vals & ~(0xFF << 3)) | (shifted << 3)
+
+    @staticmethod
+    def to_dots(masked_vals, byte_offset: int):
+        return hgr_to_dots(masked_vals, byte_offset)
+
+
+def spec_for_mode(mode: VideoMode):
+    """The packed-representation class of `mode` (TypeError on another
+    package's VideoMode)."""
+    return DHGR if require_mode(mode) == VideoMode.DHGR else HGR
+
+
+def _double_pixels(x):
+    """Each of bits 0..6 controls two dots; bit 6 spills a third dot (bit
+    14) in case the following byte is palette-shifted."""
+    dp = x & 0
+    for k in range(7):
+        bit = (x >> k) & 1
+        dp = dp | (bit << (2 * k)) | (bit << (2 * k + 1))
+    dp = dp | (((x >> 6) & 1) << 14)
+    return dp
+
+
+def hgr_to_dots(masked_vals, byte_offset: int):
+    """HGR 14-bit masked values -> 21-bit display dot sequences (numpy
+    arrays or torch tensors: operator-only arithmetic).  Each data bit
+    doubles into two dots, the palette bit delays a byte's dots by one
+    position, and a palette-shifted byte overwrites the spilled third dot
+    of its predecessor's bit 6."""
+    mv = masked_vals
+    h = (mv & 0b111) << 5
+    hp = (h & 0x80) >> 7
+    res = _double_pixels(h & 0x7F) >> (11 - hp)
+
+    if byte_offset == 0:
+        b = (mv >> 3) & 0xFF
+        bp = (b & 0x80) >> 7
+        body = b & 0x7F
+    else:
+        bp = (mv >> 3) & 0x01
+        body = (mv >> 4) & 0x7F
+    # mask out in case we overwrite the spilled high dot of the header
+    res = res & ~((2 ** 14 - 1) << (3 + bp))
+    res = res ^ (_double_pixels(body) << (3 + bp))
+
+    f = (mv >> 12) & 0b11
+    fp = (mv >> 11) & 0b01
+    res = res & ~((2 ** 4 - 1) << (17 + fp))
+    res = res ^ (_double_pixels(f) << (17 + fp))
+    return res & (2 ** 21 - 1)
 
 
 def _zero_col(a: torch.Tensor, col: int) -> torch.Tensor:
@@ -16,12 +159,8 @@ def _zero_col(a: torch.Tensor, col: int) -> torch.Tensor:
 
 
 def dhgr_masked_lanes(main: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
-    """(..., 32, 256) screen bytes -> (..., 32, 128, 4) int32 13-bit lanes.
-
-    Same bit layout as iivision_tpu.screen.dhgr_masked_lanes: per column
-    pair [hdr:3][aux_even:7][main_even:7][aux_odd:7][main_odd:7][ftr:3],
-    with no header/footer leaking across page boundaries.
-    """
+    """(..., 32, 256) screen bytes -> (..., 32, 128, 4) int32 13-bit
+    lanes."""
     main = main.to(torch.int32)
     aux = aux.to(torch.int32)
     a0 = aux[..., 0::2] & 0x7F
@@ -42,8 +181,8 @@ def dhgr_masked_lanes(main: torch.Tensor, aux: torch.Tensor) -> torch.Tensor:
 
 
 def hgr_masked_lanes(main: torch.Tensor) -> torch.Tensor:
-    """(..., 32, 256) screen bytes -> (..., 32, 128, 2) int32 14-bit lanes
-    (iivision_tpu.screen.hgr_masked_lanes)."""
+    """(..., 32, 256) screen bytes -> (..., 32, 128, 2) int32 14-bit
+    lanes."""
     main = main.to(torch.int32)
     even = main[..., 0::2]
     odd = main[..., 1::2]
@@ -54,6 +193,46 @@ def hgr_masked_lanes(main: torch.Tensor) -> torch.Tensor:
     packed = (hdr | (even << 3) | ((odd & 0x80) << 4)
               | ((odd & 0x7F) << 12) | (ftr << 19))
     return torch.stack([packed & 0x3FFF, (packed >> 8) & 0x3FFF], dim=-1)
+
+
+def masked_lane_at(main: torch.Tensor, aux, mode: VideoMode, lane: int,
+                   col: torch.Tensor) -> torch.Tensor:
+    """Masked lane `lane` at columns `col`, read per column from the four
+    bytes 2c-1 .. 2c+2 of each bank row, as the chunk-start kernel
+    (csrc/chunk_start.cu) derives it for one page offset.
+
+    main, aux: (..., 256) screen-byte rows (aux None for HGR); col: (N,)
+    int64 column indices in 0..127.  Returns (..., N) int32, equal to
+    `dhgr_masked_lanes` / `hgr_masked_lanes` at those columns."""
+    c2 = 2 * col
+
+    def byte(row, at, valid=None):
+        v = row.to(torch.int32)[..., at.clamp(0, 255)]
+        return v if valid is None else torch.where(valid, v, 0)
+
+    has_prev, has_next = col > 0, col < 127
+    if require_mode(mode) == VideoMode.DHGR:
+        a0 = byte(aux, c2) & 0x7F
+        m0 = byte(main, c2) & 0x7F
+        a1 = byte(aux, c2 + 1) & 0x7F
+        m1 = byte(main, c2 + 1) & 0x7F
+        if lane == 0:
+            hdr = (byte(main, c2 - 1, has_prev) & 0x7F) >> 4
+            return hdr | (a0 << 3) | ((m0 & 0b111) << 10)
+        if lane == 1:
+            return (a0 >> 4) | (m0 << 3) | ((a1 & 0b111) << 10)
+        if lane == 2:
+            return (m0 >> 4) | (a1 << 3) | ((m1 & 0b111) << 10)
+        ftr = byte(aux, c2 + 2, has_next) & 0b111
+        return (a1 >> 4) | (m1 << 3) | (ftr << 10)
+    even, odd = byte(main, c2), byte(main, c2 + 1)
+    prev_odd = byte(main, c2 - 1, has_prev)
+    next_even = byte(main, c2 + 2, has_next)
+    hdr = ((prev_odd >> 5) & 0b011) | ((prev_odd >> 5) & 0b100)
+    ftr = ((next_even >> 7) & 1) | ((next_even & 0b11) << 1)
+    packed = (hdr | (even << 3) | ((odd & 0x80) << 4)
+              | ((odd & 0x7F) << 12) | (ftr << 19))
+    return (packed >> (8 * lane)) & 0x3FFF
 
 
 def interleave_bank_lanes(even_vals: torch.Tensor,

@@ -13,10 +13,13 @@ import torch
 
 from iivision_tpu import encoder as jenc
 from iivision_tpu.parallel import mesh as jmesh
-from iivision_tpu.sim import PlayerVM
-from iivision_tpu.video_mode import VideoMode
-from iivision_tpu_torch import cli, encoder
+from iivision_tpu.video_mode import VideoMode as JVideoMode
+from iivision_tpu_torch import cli, encoder, frames
+from iivision_tpu_torch.palettes import Palette
 from iivision_tpu_torch.parallel import mesh
+from iivision_tpu_torch.sim import PlayerVM
+from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
+from iivision_tpu_torch.video_mode import VideoMode
 
 from tests.test_encoder import get_dist, random_frames
 from tests.test_pipeline import gradient_movie
@@ -26,9 +29,14 @@ DHGR = VideoMode.DHGR
 HGR = VideoMode.HGR
 
 
+def jm(mode):
+    """The JAX package's VideoMode member of the port's `mode`."""
+    return JVideoMode[mode.name]
+
+
 def batch_targets(mode, B, n_frames, seed):
     """B movies' distinct random targets, stacked: numpy (main, aux)."""
-    mains, auxes = zip(*(random_frames(mode, n_frames, seed + i)
+    mains, auxes = zip(*(random_frames(jm(mode), n_frames, seed + i)
                          for i in range(B)))
     return np.stack(mains), (np.stack(auxes) if mode == DHGR else None)
 
@@ -36,8 +44,8 @@ def batch_targets(mode, B, n_frames, seed):
 def flat_plan(mode, k, j):
     plan, _ = jenc.plan_movie(
         n_frames=2, n_audio_ticks=700, input_frame_rate=14700.0 / 350,
-        ticks_per_second=14700.0, every_n_video_frames=1, mode=mode, k=k,
-        j=j)
+        ticks_per_second=14700.0, every_n_video_frames=1, mode=jm(mode),
+        k=k, j=j)
     return plan
 
 
@@ -53,11 +61,11 @@ def test_batch_matches_jax_and_solo(mode, k, j):
     F = main.shape[1]
     j_lanes, j_bytes = jenc.prepare_targets(
         main.reshape(B * F, 32, 256),
-        None if aux is None else aux.reshape(B * F, 32, 256), mode)
+        None if aux is None else aux.reshape(B * F, 32, 256), jm(mode))
     j_lanes = np.asarray(j_lanes).reshape((B, F) + j_lanes.shape[1:])
     j_bytes = np.asarray(j_bytes).reshape((B, F) + j_bytes.shape[1:])
     j_ops, j_main, j_aux = jmesh.encode_movies_batch(
-        get_dist(mode), j_lanes, j_bytes, plan, mode, seeds=seeds)
+        get_dist(jm(mode)), j_lanes, j_bytes, plan, jm(mode), seeds=seeds)
     S = len(plan.step_frame)
     want = jmesh.fetch_ops(j_ops, plan)[:, :S]
 
@@ -90,13 +98,13 @@ def test_mixed_matches_jax(specs, fps, tps):
     each movie cut to its own n_ops) equals the JAX one op for op."""
     movies = []
     for nf, nt, sd in specs:
-        main, aux = random_frames(DHGR, nf, 40 + sd)
+        main, aux = random_frames(jm(DHGR), nf, 40 + sd)
         movies.append((main, aux, nf, nt))
     seeds = [sd + 3 for _, _, sd in specs]
     kw = dict(input_frame_rate=fps, ticks_per_second=tps,
               every_n_video_frames=1, k=8, seeds=seeds)
     j_flats, j_plan, j_n = jmesh.encode_movies_mixed(
-        get_dist(DHGR), movies, DHGR, **kw)
+        get_dist(jm(DHGR)), movies, jm(DHGR), **kw)
     flats, plan_max, n_ops = mesh.encode_movies_mixed(
         torch_dist(DHGR), movies, DHGR, **kw)
     assert n_ops == j_n and plan_max.n_ops == j_plan.n_ops
@@ -158,9 +166,6 @@ def test_cli_batch_transcodes_on_cpu(tmp_path, capsys):
     assert sorted(os.listdir(out_dir)) == ["long.a2m", "short.a2m"]
 
     # the short clip, padded to the batch's plan and encoded alone
-    from iivision_tpu import frames
-    from iivision_tpu.palettes import Palette
-
     fr = [frames.ingest(c, DHGR, Palette.NTSC, every_n_video_frames=2)
           for c in clips]
     ticks = [int(f.n_frames_total / f.input_frame_rate * 14700) + 1
@@ -179,8 +184,6 @@ def test_cli_batch_transcodes_on_cpu(tmp_path, capsys):
     ops, _, _ = encoder.encode_movie(torch_dist(DHGR), lanes, bytes_,
                                      plan_max, DHGR, seed=6, joint=True)
     solo = encoder.flatten_ops(ops.numpy(), plan_max)[:rows[1]["n_ops"]]
-    from iivision_tpu.stream.emit_fast import emit_stream_fast
-
     levels = np.zeros(len(solo), np.int32)
     assert emit_stream_fast(solo, levels, DHGR) == open(
         rows[1]["output"], "rb").read()

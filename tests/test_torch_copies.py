@@ -1,0 +1,318 @@
+"""iivision_tpu_torch keeps its own copies of the JAX package's host-side
+tables and functions (it imports nothing of the JAX package).  Each copy
+gives what the original gives, exactly: screen tables and specs, the plan,
+stream emission and opcode addresses, palettes and colour codes, the
+dither tables and host quantizers, resize, host ingest, audio levels, op
+replay, the yiq tables and the player VM."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from iivision_tpu import audio as jaudio
+from iivision_tpu import cli as jcli
+from iivision_tpu import encoder as jenc
+from iivision_tpu import frames as jframes
+from iivision_tpu import palettes as jpalettes
+from iivision_tpu import quality as jquality
+from iivision_tpu import screen as jscreen
+from iivision_tpu.ops import distance as jdist
+from iivision_tpu.ops import dither as jdither
+from iivision_tpu.ops import editdist as jed
+from iivision_tpu.ops import resize as jresize
+from iivision_tpu.ops import yiq as jyiq
+from iivision_tpu.palettes import Palette as JPalette
+from iivision_tpu.sim import PlayerVM as JPlayerVM
+from iivision_tpu.sim import native as jnative
+from iivision_tpu.stream.emit_fast import emit_stream_fast as j_emit
+from iivision_tpu.stream.opcodes import default_addresses as j_addresses
+from iivision_tpu.video_mode import VideoMode as JVideoMode
+from iivision_tpu_torch import audio, cli, encoder, frames, palettes, quality
+from iivision_tpu_torch import screen
+from iivision_tpu_torch.ops import distance, dither, editdist, resize, yiq
+from iivision_tpu_torch.palettes import Palette
+from iivision_tpu_torch.sim import PlayerVM
+from iivision_tpu_torch.sim import native
+from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
+from iivision_tpu_torch.stream.opcodes import default_addresses
+from iivision_tpu_torch.video_mode import VideoMode
+
+MODES = [VideoMode.DHGR, VideoMode.HGR]
+PALETTES = [Palette.NTSC, Palette.IIGS]
+
+
+def jm(mode):
+    """The JAX package's member of the port's VideoMode or Palette."""
+    return (JVideoMode if isinstance(mode, VideoMode) else JPalette)[
+        mode.name]
+
+
+def test_enum_values():
+    assert [(m.name, m.value) for m in VideoMode] == [
+        (m.name, m.value) for m in JVideoMode]
+    assert [(p.name, p.value) for p in Palette] == [
+        (p.name, p.value) for p in JPalette]
+
+
+def test_screen_tables():
+    assert np.array_equal(screen.SCREEN_HOLES, jscreen.SCREEN_HOLES)
+    for page in (0, 1):
+        assert [screen.y_to_base_addr(y, page) for y in range(192)] == \
+            jscreen.Y_TO_BASE_ADDR[page]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_spec_constants_and_updates(mode):
+    got, want = screen.spec_for_mode(mode), jscreen.spec_for_mode(jm(mode))
+    for name in ("NAME", "MASKED_BITS", "MASKED_DOTS", "N_LANES", "PHASES"):
+        assert getattr(got, name) == getattr(want, name), name
+    banks = (False, True) if mode == VideoMode.DHGR else (False,)
+    assert [got.bank_lanes(a) for a in banks] == \
+        [want.bank_lanes(a) for a in banks]
+    rng = np.random.RandomState(1)
+    vals = rng.randint(0, 1 << got.MASKED_BITS, 500)
+    content = rng.randint(0, 256, 500)
+    for lane in range(got.N_LANES):
+        if mode == VideoMode.DHGR:
+            a, b = got.masked_update(vals, content), \
+                want.masked_update(vals, content)
+        else:
+            a, b = got.masked_update(vals, content, lane), \
+                want.masked_update(vals, content, lane)
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("lane", [0, 1])
+def test_hgr_to_dots(lane):
+    vals = np.random.RandomState(2).randint(0, 1 << 14, 4000)
+    want = jscreen.hgr_to_dots(vals, lane)
+    assert np.array_equal(screen.hgr_to_dots(vals, lane), want)
+    assert np.array_equal(
+        screen.hgr_to_dots(torch.as_tensor(vals, dtype=torch.int32),
+                           lane).numpy(), want)
+
+
+@pytest.mark.parametrize("n_frames,ticks,fps,tps,every_n,mode,k,j", [
+    (2, 1200, 12.0, 14700.0, 1, VideoMode.DHGR, 8, 1),
+    (300, 147000, 30.0, 14700.0, 2, VideoMode.DHGR, 16, 4),
+    (40, 20000, 30.0, 14700.0, 2, VideoMode.HGR, 8, 1),
+    (3, 2000, 1.0, 350.0, 1, VideoMode.DHGR, 4, 3),
+])
+def test_plan_movie(n_frames, ticks, fps, tps, every_n, mode, k, j):
+    kw = dict(n_frames=n_frames, n_audio_ticks=ticks, input_frame_rate=fps,
+              ticks_per_second=tps, every_n_video_frames=every_n, k=k, j=j)
+    got, n = encoder.plan_movie(mode=mode, **kw)
+    want, jn = jenc.plan_movie(mode=jm(mode), **kw)
+    assert n == jn
+    for f in ("n_ops", "k", "j", "chunk_steps"):
+        assert getattr(got, f) == getattr(want, f), f
+    for f in ("step_frame", "step_bank", "step_recompute", "step_nvalid",
+              "op_tick_index"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    ops = np.random.RandomState(3).randint(
+        0, 256, (len(got.step_frame), k * j, 6)).astype(np.uint8)
+    assert np.array_equal(encoder.flatten_ops(ops, got),
+                          jenc.flatten_ops(ops, want))
+
+
+@pytest.mark.parametrize("mode,n,cap", [
+    (VideoMode.DHGR, 1500, None), (VideoMode.HGR, 700, None),
+    (VideoMode.DHGR, 1500, 5000), (VideoMode.DHGR, 0, None)])
+def test_emit_stream_fast_bytes(mode, n, cap):
+    rng = np.random.RandomState(4)
+    flat = np.concatenate([rng.randint(32, 64, (n, 1)),
+                           rng.randint(0, 256, (n, 5))], axis=1)
+    levels = rng.randint(-15, 17, n)
+    got = emit_stream_fast(flat, levels, mode, max_bytes_out=cap)
+    assert got == j_emit(flat, levels, jm(mode), max_bytes_out=cap)
+    assert len(got) % 2048 == 0
+
+
+def test_opcode_addresses():
+    got, want = default_addresses(), j_addresses()
+    assert (got.header, got.terminate, got.nop, got.ack) == \
+        (want.header, want.terminate, want.nop, want.ack)
+    assert got.tick == want.tick
+
+
+@pytest.mark.parametrize("palette", PALETTES)
+def test_palettes_and_costs(palette):
+    assert np.array_equal(palettes.palette_rgb_array(palette),
+                          jpalettes.palette_rgb_array(jm(palette)))
+    assert np.array_equal(palettes.diff_matrix(palette),
+                          jpalettes.diff_matrix(jm(palette)))
+    assert np.array_equal(editdist.substitute_matrix(palette),
+                          jed.substitute_matrix(jm(palette)))
+    assert np.array_equal(distance.sub16(palette), jdist.sub16(jm(palette)))
+    rgb = np.random.RandomState(5).randint(0, 256, (64, 3))
+    assert np.array_equal(palettes.srgb_to_lab(rgb),
+                          jpalettes.srgb_to_lab(rgb))
+    assert np.array_equal(dither._palette_lab(palette),
+                          jdither._palette_lab(jm(palette)))
+
+
+def test_distance_helpers():
+    assert np.array_equal(distance.sub16_mono(), jdist.sub16_mono())
+    assert distance._user_cache_dir() == jdist._user_cache_dir()
+    for mode in MODES:
+        assert distance.n_contents(mode) == jdist.n_contents(jm(mode))
+        for pal in PALETTES:
+            for model in ("window", "yiq", "mono"):
+                assert distance.store_cost_path(mode, pal, model) == \
+                    jdist.store_cost_path(jm(mode), jm(pal), model)
+    assert cli._default_out("dir/clip.mp4") == \
+        jcli._default_out("dir/clip.mp4") == "dir/clip.a2m"
+
+
+@pytest.mark.parametrize("mode,lane", [(VideoMode.DHGR, 0),
+                                       (VideoMode.DHGR, 3),
+                                       (VideoMode.HGR, 1)])
+def test_lane_pixel_codes_and_scalar_oracle(mode, lane):
+    codes = editdist.lane_pixel_codes(mode, lane)
+    assert codes.dtype == np.uint8
+    assert np.array_equal(codes, jed.lane_pixel_codes(jm(mode), lane))
+    sub = editdist.substitute_matrix(Palette.NTSC)
+    rng = np.random.RandomState(6)
+    for i, jx in rng.randint(0, len(codes), (6, 2)):
+        a, b = list(codes[i]), list(codes[jx])
+        assert editdist.dam_lev_scalar(a, b, sub) == \
+            jed.dam_lev_scalar(a, b, sub)
+
+
+def test_save_tables_layout(tmp_path, monkeypatch):
+    """The reference npz layout (upper triangle, flattened per lane) on a
+    5-bit stand-in spec, patched into both modules: the full tables are
+    512 MB."""
+    class Small:
+        NAME = "DHGR"
+        MASKED_BITS = 5
+
+    monkeypatch.setattr(editdist, "spec_for_mode", lambda mode: Small)
+    monkeypatch.setattr(jed.screen, "spec_for_mode", lambda mode: Small)
+    tables = np.random.RandomState(7).randint(0, 999, (4, 32 * 32)).astype(
+        np.uint16)
+    got = editdist.save_tables(tables, VideoMode.DHGR, Palette.NTSC,
+                               str(tmp_path / "a"))
+    want = jed.save_tables(tables, JVideoMode.DHGR, JPalette.NTSC,
+                           str(tmp_path / "b"))
+    assert os.path.basename(got) == os.path.basename(want) == \
+        "DHGR_palette_5_edit_distance.npz"
+    assert np.array_equal(np.load(got)["edit_distance"],
+                          np.load(want)["edit_distance"])
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_yiq_tables(mode):
+    assert yiq.n_pixels(mode) == jyiq.n_pixels(jm(mode))
+    assert np.array_equal(yiq.pair_lut(Palette.NTSC),
+                          jyiq.pair_lut(JPalette.NTSC))
+    assert np.array_equal(yiq.lane_subs(mode, Palette.NTSC),
+                          jyiq.lane_subs(jm(mode), JPalette.NTSC))
+
+
+def test_dither_tables_and_host_quantizers(tmp_path, monkeypatch):
+    """The Bayer matrix, the HGR colour sets, the fused LUT built by each
+    package (at 3-bit bins, into separate caches) and the C++ quantize,
+    pack, HGR fit and error-diffusion paths on the same inputs."""
+    assert np.array_equal(dither._bayer_matrix(8), jdither._bayer_matrix(8))
+    assert (dither.HGR_COLOURS_P0, dither.HGR_COLOURS_P1,
+            dither.FUSED_LUT_BITS, dither.MONO_W) == (
+        jdither.HGR_COLOURS_P0, jdither.HGR_COLOURS_P1,
+        jdither.FUSED_LUT_BITS, jdither.MONO_W)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "port"))
+    lut = dither._host_fused_lut(Palette.NTSC, (0, 3, 6, 9, 12, 15), 24.0, 3)
+    monkeypatch.setenv("XDG_CACHE_HOME", str(tmp_path / "jax"))
+    jlut = jdither._host_fused_lut(JPalette.NTSC, (0, 3, 6, 9, 12, 15), 24.0,
+                                   3)
+    assert lut.shape == (64 << 9,) and np.array_equal(lut, jlut)
+
+    rng = np.random.RandomState(8)
+    rgb = rng.randint(0, 256, (2, 192, 140, 3)).astype(np.uint8)
+    codes = native.quantize_fused(rgb, lut)
+    assert np.array_equal(codes, jnative.quantize_fused(rgb, lut))
+    for a, b in zip(native.dhgr_pack(codes), jnative.dhgr_pack(codes)):
+        assert np.array_equal(a, b)
+    assert np.array_equal(native.hgr_fit(codes), jnative.hgr_fit(codes))
+    for kernel in ("buckels", "atkinson", "d9"):
+        assert np.array_equal(
+            dither.quantize_error_diffusion(rgb[0], Palette.NTSC, kernel),
+            jdither.quantize_error_diffusion(rgb[0], JPalette.NTSC, kernel))
+
+
+@pytest.mark.parametrize("h,w,h_out,w_out", [(192, 280, 192, 140),
+                                             (240, 320, 192, 560)])
+def test_resize_matrix_and_host_resize(h, w, h_out, w_out):
+    assert np.array_equal(resize.resize_matrix(w, w_out),
+                          jresize.resize_matrix(w, w_out))
+    src = np.random.RandomState(9).randint(0, 256, (2, h, w, 3)).astype(
+        np.uint8)
+    assert np.array_equal(resize.resize_host(src, h_out, w_out),
+                          jresize.resize_batch(src, h_out, w_out))
+
+
+@pytest.mark.parametrize("mode,dither_mode", [
+    (VideoMode.DHGR, "ordered"), (VideoMode.HGR, "ordered"),
+    (VideoMode.DHGR, "mono"), (VideoMode.HGR, "buckels")])
+def test_host_ingest(mode, dither_mode):
+    """frames.ingest on an in-memory 280x192 clip, every 2nd frame."""
+    from tests.test_pipeline import gradient_movie
+
+    rgb = gradient_movie(F=6, h=192, w=280)
+    kw = dict(every_n_video_frames=2, dither_mode=dither_mode,
+              frame_rate=24.0)
+    got = frames.ingest(rgb, mode, Palette.NTSC, **kw)
+    want = jframes.ingest(rgb, jm(mode), JPalette.NTSC, **kw)
+    assert (got.n_frames_total, got.input_frame_rate) == (
+        want.n_frames_total, want.input_frame_rate)
+    assert np.array_equal(got.targets_main, want.targets_main)
+    if mode == VideoMode.DHGR:
+        assert np.array_equal(got.targets_aux, want.targets_aux)
+    else:
+        assert got.targets_aux is None and want.targets_aux is None
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_audio_levels_and_decode(tmp_path, stream):
+    """A 44.1 kHz WAV decoded by both packages; with stream=True both run
+    the polyphase decimator (numpy, exact), so the levels are equal."""
+    from scipy.io import wavfile
+
+    t = np.arange(44100 // 2) / 44100.0
+    x = (np.sin(2 * np.pi * 440 * t) * 9000).astype(np.int16)
+    path = str(tmp_path / "tone.wav")
+    wavfile.write(path, 44100, x)
+    got_data, got_rate = audio.decode_audio(path)
+    want_data, want_rate = jaudio.decode_audio(path)
+    assert got_rate == want_rate and np.array_equal(got_data, want_data)
+    if stream:
+        got = audio.Audio(path, stream=True, device="cpu")
+        want = jaudio.Audio(path, stream=True)
+        assert got.normalization == want.normalization
+        assert np.array_equal(got.levels(), want.levels())
+    else:
+        got = audio.Audio(data=x, rate=14700, device="cpu")
+        want = jaudio.Audio(data=x, rate=14700)
+        assert np.array_equal(got.levels(), want.levels())
+
+
+def test_replay_ops_and_player_vm():
+    """The copied replay and the copied player VM on one emitted stream."""
+    rng = np.random.RandomState(10)
+    n = 1200
+    flat = np.concatenate([rng.randint(32, 64, (n, 1)),
+                           rng.randint(0, 256, (n, 5))], axis=1).astype(
+        np.uint8)
+    bank = rng.randint(0, 2, n)
+    bounds = np.array([100, 555, n - 1])
+    assert np.array_equal(quality.replay_ops(flat, bank, bounds),
+                          jquality.replay_ops(flat, bank, bounds))
+    data = emit_stream_fast(flat, rng.randint(-15, 17, n), VideoMode.DHGR)
+    got, want = PlayerVM().decode(data), JPlayerVM().decode(data)
+    for f in ("ok", "error", "error_pos", "n_ops", "n_acks", "cycles",
+              "video_mode"):
+        assert getattr(got, f) == getattr(want, f), f
+    for f in ("main", "aux", "duty"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert got.ok and got.n_ops == n

@@ -9,21 +9,28 @@ import torch
 
 from iivision_tpu.ops import distance as jdist
 from iivision_tpu.ops import editdist as jed
-from iivision_tpu.palettes import Palette
-from iivision_tpu.video_mode import VideoMode
+from iivision_tpu.palettes import Palette as JPalette
+from iivision_tpu.video_mode import VideoMode as JVideoMode
 from iivision_tpu_torch import make_tables
 from iivision_tpu_torch.ops import distance, editdist
+from iivision_tpu_torch.palettes import Palette
+from iivision_tpu_torch.video_mode import VideoMode
+
+
+def jm(mode):
+    """The JAX package's VideoMode member of the port's `mode`."""
+    return JVideoMode[mode.name]
 
 
 @pytest.fixture(scope="module")
 def sub():
-    return jed.substitute_matrix(Palette.NTSC)
+    return jed.substitute_matrix(JPalette.NTSC)
 
 
 @pytest.mark.parametrize("mode,n,tm,tn", [(VideoMode.DHGR, 64, 64, 128),
                                           (VideoMode.HGR, 32, 32, 128)])
 def test_tile_matches_pallas_and_xla(sub, mode, n, tm, tn):
-    codes = jed.lane_pixel_codes(mode, 0).astype(np.int32)
+    codes = jed.lane_pixel_codes(jm(mode), 0).astype(np.int32)
     rows, cols = codes[:n], codes[512:512 + 4 * n]
     sub_f = jnp.asarray(sub.astype(np.float32))
     pallas = np.asarray(jed.pallas_distance(
@@ -47,7 +54,7 @@ def test_tile_matches_pallas_and_xla(sub, mode, n, tm, tn):
 
 @pytest.mark.parametrize("mode", [VideoMode.DHGR, VideoMode.HGR])
 def test_tile_matches_dam_lev_scalar(sub, mode):
-    codes = jed.lane_pixel_codes(mode, 1).astype(np.int32)
+    codes = jed.lane_pixel_codes(jm(mode), 1).astype(np.int32)
     rng = np.random.RandomState(9)
     idx = rng.randint(0, len(codes), 12)
     got = editdist.dp_distance_tile(torch.as_tensor(codes[idx]),
@@ -63,7 +70,7 @@ def test_tile_matches_dam_lev_scalar(sub, mode):
 
 def test_pair_distance_writes_out(sub):
     codes = torch.as_tensor(
-        jed.lane_pixel_codes(VideoMode.DHGR, 2)[:48].astype(np.int32))
+        jed.lane_pixel_codes(JVideoMode.DHGR, 2)[:48].astype(np.int32))
     out = torch.zeros((48, 48), dtype=torch.uint16)
     res = editdist.pair_distance(codes, codes, torch.as_tensor(sub), out)
     assert res is out
@@ -91,7 +98,7 @@ def test_make_tables_store_cost_writes_the_shipped_table(tmp_path,
     layout: uint16 under "cost", equal to the shipped file.  (The build
     itself is held against the shipped npz in test_torch_distance; here it
     returns that npz.)"""
-    want = np.load(jdist.store_cost_path(VideoMode.DHGR, Palette.NTSC,
+    want = np.load(jdist.store_cost_path(JVideoMode.DHGR, JPalette.NTSC,
                                          "window"))["cost"]
     calls = []
 
@@ -104,7 +111,7 @@ def test_make_tables_store_cost_writes_the_shipped_table(tmp_path,
                       "--palettes", "NTSC", "--what", "store_cost",
                       "--models", "window", "--device", "cpu"])
     assert calls == [(VideoMode.DHGR, Palette.NTSC, "window", "cpu")]
-    path = jdist.store_cost_path(VideoMode.DHGR, Palette.NTSC, "window",
+    path = jdist.store_cost_path(JVideoMode.DHGR, JPalette.NTSC, "window",
                                  str(tmp_path))
     got = np.load(path)["cost"]
     assert got.dtype == want.dtype == np.uint16

@@ -13,14 +13,21 @@ import torch
 from iivision_tpu import encoder as jenc
 from iivision_tpu import encoder_host
 from iivision_tpu.ops import distance as jdist
-from iivision_tpu.palettes import Palette
-from iivision_tpu.stream.emit_fast import emit_stream_fast
-from iivision_tpu.video_mode import VideoMode
+from iivision_tpu.palettes import Palette as JPalette
+from iivision_tpu.video_mode import VideoMode as JVideoMode
 from iivision_tpu_torch import cli, encoder
 from iivision_tpu_torch.ops import distance, subop
+from iivision_tpu_torch.palettes import Palette
+from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
+from iivision_tpu_torch.video_mode import VideoMode
 
 DHGR = VideoMode.DHGR
 HGR = VideoMode.HGR
+
+
+def jm(mode):
+    """The JAX package's VideoMode member of the port's `mode`."""
+    return JVideoMode[mode.name]
 GOLDEN_SHA = "57fdd52adf53d75101ed121d28d8a5389465c09f99d960ba6c47c20dbdb30fbc"
 
 
@@ -46,7 +53,7 @@ def host_oracle_ops(dist, lanes, bytes_tgt, plan, mode):
         store_cost = dist.store_cost16.numpy().astype(np.float32)
         sub = dist.sub.numpy()
 
-    henc = encoder_host.HostEncoder(mode, HostDist, k=plan.k, seed=None,
+    henc = encoder_host.HostEncoder(jm(mode), HostDist, k=plan.k, seed=None,
                                     j=plan.j)
     host = []
     for s in range(len(plan.step_frame)):
@@ -92,13 +99,13 @@ def test_seeded_stream_matches_jax(seed, k, j):
     fmain, faux = random_frames(3, seed + 40)
     plan, _ = jenc.plan_movie(
         n_frames=3, n_audio_ticks=1200, input_frame_rate=36.0,
-        ticks_per_second=14700.0, every_n_video_frames=1, mode=DHGR, k=k,
-        j=j)
+        ticks_per_second=14700.0, every_n_video_frames=1, mode=jm(DHGR),
+        k=k, j=j)
     assert plan.step_bank.max() == 1
-    lanes, bytes_tgt = jenc.prepare_targets(fmain, faux, DHGR)
-    jd = jdist.ComputedDistance(DHGR, Palette.NTSC)
+    lanes, bytes_tgt = jenc.prepare_targets(fmain, faux, jm(DHGR))
+    jd = jdist.ComputedDistance(jm(DHGR), JPalette.NTSC)
     j_ops, j_main, j_aux = jenc.encode_movie(jd, lanes, bytes_tgt, plan,
-                                             DHGR, seed=seed)
+                                             jm(DHGR), seed=seed)
     t_lanes, t_bytes = encoder.prepare_targets(fmain, faux, DHGR, "cpu")
     assert np.array_equal(t_lanes.numpy(), np.asarray(lanes))
     assert np.array_equal(t_bytes.numpy(), np.asarray(bytes_tgt))
@@ -130,8 +137,8 @@ def check_host_oracle(mode, k, j):
     fmain, faux = random_frames(2, 3, mode)
     plan, _ = jenc.plan_movie(
         n_frames=2, n_audio_ticks=700, input_frame_rate=6.0,
-        ticks_per_second=2100.0, every_n_video_frames=1, mode=mode, k=k,
-        j=j)
+        ticks_per_second=2100.0, every_n_video_frames=1, mode=jm(mode),
+        k=k, j=j)
     lanes, bytes_tgt = encoder.prepare_targets(fmain, faux, mode, "cpu")
     ops, fin_main, fin_aux = encoder.encode_movie(
         torch_dist(mode), lanes, bytes_tgt, plan, mode, seed=None)
@@ -159,7 +166,7 @@ def test_yiq_matches_host_oracle(mode):
     plan, _ = jenc.plan_movie(
         n_frames=2, n_audio_ticks=700, input_frame_rate=2100.0 / 700 * 2,
         ticks_per_second=2100.0 * 2 / 700 * 350,
-        every_n_video_frames=1, mode=mode, k=8)
+        every_n_video_frames=1, mode=jm(mode), k=8)
     lanes, bytes_tgt = encoder.prepare_targets(fmain, faux, mode, "cpu")
     ops, _, _ = encoder.encode_movie(dist, lanes, bytes_tgt, plan, mode,
                                      seed=None)
@@ -180,14 +187,14 @@ def test_seeded_mode_and_model_match_jax(mode, model, k, j, tmp_path,
     fmain, faux = random_frames(2, 17, mode)
     plan, _ = jenc.plan_movie(
         n_frames=2, n_audio_ticks=900, input_frame_rate=36.0,
-        ticks_per_second=14700.0, every_n_video_frames=1, mode=mode, k=k,
-        j=j)
+        ticks_per_second=14700.0, every_n_video_frames=1, mode=jm(mode),
+        k=k, j=j)
     if mode == HGR:
         assert plan.chunk_steps == jenc.BODY_CAP  # continuation bodies
-    lanes, bytes_tgt = jenc.prepare_targets(fmain, faux, mode)
-    jd = jdist.ComputedDistance(mode, Palette.NTSC, model)
+    lanes, bytes_tgt = jenc.prepare_targets(fmain, faux, jm(mode))
+    jd = jdist.ComputedDistance(jm(mode), JPalette.NTSC, model)
     j_ops, j_main, j_aux = jenc.encode_movie(jd, lanes, bytes_tgt, plan,
-                                             mode, seed=5)
+                                             jm(mode), seed=5)
     t_lanes, t_bytes = encoder.prepare_targets(fmain, faux, mode, "cpu")
     assert np.array_equal(t_lanes.numpy(), np.asarray(lanes))
     assert np.array_equal(t_bytes.numpy(), np.asarray(bytes_tgt))
@@ -212,7 +219,7 @@ def test_offset_zero_companion_matches_host_oracle():
         store_cost = np.zeros((4, 8192, C), np.float32)
         sub = distance.sub16(Palette.NTSC)
 
-    henc = encoder_host.HostEncoder(DHGR, HostDist, k=1, seed=None, j=1)
+    henc = encoder_host.HostEncoder(jm(DHGR), HostDist, k=1, seed=None, j=1)
     page = 3
     henc.up[0, page, 10], henc.up[0, page, 0] = 1000, 500
     henc.dw[0, page, 10], henc.dw[0, page, 0] = 900, 800
@@ -247,7 +254,7 @@ def test_distance_model_on_another_device_is_refused():
     fmain, faux = random_frames(1, 0)
     plan, _ = jenc.plan_movie(
         n_frames=1, n_audio_ticks=100, input_frame_rate=30.0,
-        ticks_per_second=14700.0, every_n_video_frames=1, mode=DHGR, k=8)
+        ticks_per_second=14700.0, every_n_video_frames=1, mode=jm(DHGR), k=8)
     lanes, bytes_tgt = encoder.prepare_targets(fmain, faux, DHGR, "cpu")
 
     class MetaDist:

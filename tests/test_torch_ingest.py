@@ -21,14 +21,21 @@ import torch
 
 from iivision_tpu.ops import dither as jdither
 from iivision_tpu.ops import resize as jresize
-from iivision_tpu.palettes import Palette
+from iivision_tpu.palettes import Palette as JPalette
 from iivision_tpu.parallel import mesh as jmesh
-from iivision_tpu.video_mode import VideoMode
+from iivision_tpu.video_mode import VideoMode as JVideoMode
 from iivision_tpu_torch.ops import dither, resize
+from iivision_tpu_torch.palettes import Palette
 from iivision_tpu_torch.parallel import mesh
+from iivision_tpu_torch.video_mode import VideoMode
 
 CODE_MISMATCH_CEILING = 0.005  # share of pixels (measured: 0)
 RESIZE_MISMATCH_CEILING = 1e-3  # share of values one level apart
+
+
+def jm(mode):
+    """The JAX package's VideoMode member of the port's `mode`."""
+    return JVideoMode[mode.name]
 
 
 def rgb_frames(shape, seed):
@@ -41,7 +48,7 @@ def test_mono_and_packing_bit_exact(mode):
     """quantize_mono, the DHGR code packing, the HGR dot fit and the row
     interleave equal the JAX package's numpy forms bit for bit."""
     rgb560 = rgb_frames((3, 192, 560, 3), 1)
-    want = jdither.quantize_mono(rgb560, mode)
+    want = jdither.quantize_mono(rgb560, jm(mode))
     got = dither.quantize_mono(torch.as_tensor(rgb560), mode)
     assert got[0].dtype == torch.uint8
     assert np.array_equal(got[0].numpy(), want[0])
@@ -70,13 +77,15 @@ def test_quantizers_within_pinned_mismatch(palette):
     jitted JAX functions on 12 random frames."""
     rgb = rgb_frames((12, 192, 140, 3), 3)
     want = np.asarray(jax.jit(
-        lambda x: jdither.quantize_ordered(x, palette))(jnp.asarray(rgb)))
+        lambda x: jdither.quantize_ordered(x, JPalette[palette.name]))(
+            jnp.asarray(rgb)))
     got = dither.quantize_ordered(torch.as_tensor(rgb), palette)
     assert got.dtype == torch.int32 and got.shape == want.shape
     assert (got.numpy() != want).mean() <= CODE_MISMATCH_CEILING
 
     want = np.asarray(jax.jit(
-        lambda x: jdither.quantize_hgr(x, palette))(jnp.asarray(rgb)))
+        lambda x: jdither.quantize_hgr(x, JPalette[palette.name]))(
+            jnp.asarray(rgb)))
     got = dither.quantize_hgr(torch.as_tensor(rgb), palette)
     assert got.dtype == torch.uint8 and got.shape == want.shape == (
         12, 32, 256)
@@ -104,7 +113,8 @@ def test_ingest_movies_batch_matches_jax(mode, h, w):
     wherever a frame's bytes are equal."""
     B, F = 2, 3
     rgb = rgb_frames((B, F, h, w, 3), 5)
-    j_lanes, j_bytes = jmesh.ingest_movies_batch(rgb, mode, Palette.NTSC)
+    j_lanes, j_bytes = jmesh.ingest_movies_batch(rgb, jm(mode),
+                                                 JPalette.NTSC)
     j_lanes, j_bytes = np.asarray(j_lanes), np.asarray(j_bytes)
     lanes, bytes_ = mesh.ingest_movies_batch(torch.as_tensor(rgb), mode,
                                              Palette.NTSC)

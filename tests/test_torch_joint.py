@@ -12,15 +12,21 @@ import torch
 
 from iivision_tpu import encoder as jenc
 from iivision_tpu import encoder_host
-from iivision_tpu.palettes import Palette
-from iivision_tpu.video_mode import VideoMode
+from iivision_tpu.video_mode import VideoMode as JVideoMode
 from iivision_tpu_torch import encoder
 from iivision_tpu_torch.ops import distance, subop
+from iivision_tpu_torch.palettes import Palette
+from iivision_tpu_torch.video_mode import VideoMode
 
 from tests.test_encoder import get_dist, random_frames
 
 DHGR = VideoMode.DHGR
 HGR = VideoMode.HGR
+
+
+def jm(mode):
+    """The JAX package's VideoMode member of the port's `mode`."""
+    return JVideoMode[mode.name]
 
 
 @functools.lru_cache(None)
@@ -34,7 +40,7 @@ def joint_plan(mode, k, j):
     plan, n_enc = jenc.plan_movie(
         n_frames=2, n_audio_ticks=700, input_frame_rate=2100.0 / 700 * 2,
         ticks_per_second=2100.0 * 2 / 700 * 350,
-        every_n_video_frames=1, mode=mode, k=k, j=j)
+        every_n_video_frames=1, mode=jm(mode), k=k, j=j)
     assert n_enc == 2
     return plan
 
@@ -45,13 +51,15 @@ def test_joint_matches_host_oracle_and_jax(mode, k, j):
     """Deterministic joint streams equal encode_movie_host(joint=True) and
     the JAX scan's, op for op, with the same final screens; joint differs
     from the default rule somewhere."""
-    fmain, faux = random_frames(mode, n_frames=2, seed=5)
+    fmain, faux = random_frames(jm(mode), n_frames=2, seed=5)
     plan = joint_plan(mode, k, j)
-    lanes, bytes_tgt = jenc.prepare_targets(fmain, faux, mode)
+    lanes, bytes_tgt = jenc.prepare_targets(fmain, faux, jm(mode))
     j_ops, j_main, j_aux = jenc.encode_movie(
-        get_dist(mode), lanes, bytes_tgt, plan, mode, seed=None, joint=True)
+        get_dist(jm(mode)), lanes, bytes_tgt, plan, jm(mode), seed=None,
+        joint=True)
     host = encoder_host.encode_movie_host(
-        get_dist(mode), lanes, bytes_tgt, plan, mode, seed=None, joint=True)
+        get_dist(jm(mode)), lanes, bytes_tgt, plan, jm(mode), seed=None,
+        joint=True)
 
     t_lanes, t_bytes = encoder.prepare_targets(fmain, faux, mode, "cpu")
     ops, fin_main, fin_aux = encoder.encode_movie(
@@ -72,14 +80,15 @@ def test_joint_matches_host_oracle_and_jax(mode, k, j):
 @pytest.mark.parametrize("mode,k,j", [(DHGR, 8, 2), (HGR, 4, 3)])
 def test_seeded_joint_matches_jax(mode, k, j):
     """Seeded joint streams (threefry nonces) equal the JAX scan's."""
-    fmain, faux = random_frames(mode, n_frames=2, seed=9)
+    fmain, faux = random_frames(jm(mode), n_frames=2, seed=9)
     plan, _ = jenc.plan_movie(
         n_frames=2, n_audio_ticks=900, input_frame_rate=36.0,
-        ticks_per_second=14700.0, every_n_video_frames=1, mode=mode, k=k,
-        j=j)
-    lanes, bytes_tgt = jenc.prepare_targets(fmain, faux, mode)
+        ticks_per_second=14700.0, every_n_video_frames=1, mode=jm(mode),
+        k=k, j=j)
+    lanes, bytes_tgt = jenc.prepare_targets(fmain, faux, jm(mode))
     j_ops, j_main, _ = jenc.encode_movie(
-        get_dist(mode), lanes, bytes_tgt, plan, mode, seed=7, joint=True)
+        get_dist(jm(mode)), lanes, bytes_tgt, plan, jm(mode), seed=7,
+        joint=True)
     t_lanes, t_bytes = encoder.prepare_targets(fmain, faux, mode, "cpu")
     ops, fin_main, _ = encoder.encode_movie(
         torch_dist(mode), t_lanes, t_bytes, plan, mode, seed=7, joint=True)
@@ -120,7 +129,7 @@ def test_crafted_joint_page_matches_host_oracle(joint):
         store_cost = np.zeros((4, 8192, C), np.float32)
         sub = distance.sub16(Palette.NTSC)
 
-    henc = encoder_host.HostEncoder(DHGR, HostDist, k=1, seed=None, j=1,
+    henc = encoder_host.HostEncoder(jm(DHGR), HostDist, k=1, seed=None, j=1,
                                     joint=joint)
     henc.up[0, page], henc.dw[0, page] = up, dw
     henc.sc[page] = table  # row t of the table at offset t

@@ -1,8 +1,12 @@
-"""iivision_tpu_torch needs no JAX: its entry points import, and tiny DHGR
-and HGR yiq encodes, a B=2 batch encode with joint content, a batch
-ingest, a replay score and the sub-op microbenchmark run, in a process
-where importing jax fails.  `bench.synth_clip`, which chip_smoke.py uses,
-imports there too."""
+"""iivision_tpu_torch needs neither JAX nor the JAX package: its entry
+points import, and tiny DHGR and HGR yiq encodes, a B=2 batch encode with
+joint content, a batch ingest, a replay score, a host-ingest Movie through
+the player VM, the CLI and the sub-op microbenchmark run, in a process
+where importing `jax`, `iivision_tpu` or the JAX benchmark `bench` fails.
+chip_smoke.py imports there too.  No port source (nor chip_smoke.py)
+imports any of them."""
+
+import ast
 
 import os
 import subprocess
@@ -14,28 +18,35 @@ _CHILD = r"""
 import sys
 
 
-class BlockJax:
+BLOCKED = ("jax", "jaxlib", "iivision_tpu", "bench")
+
+
+class Block:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is blocked in this process")
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("%s is blocked in this process" % name)
         return None
 
 
-sys.meta_path.insert(0, BlockJax())
+sys.meta_path.insert(0, Block())
+
+import os
+import tempfile
 
 import numpy as np
 
+import chip_smoke
 import iivision_tpu_torch
 import iivision_tpu_torch.cli
 import iivision_tpu_torch.make_tables
-from iivision_tpu_torch import bench_subop, encoder, quality
+from iivision_tpu_torch import audio, bench_subop, encoder, quality
 from iivision_tpu_torch.movie import Movie
 from iivision_tpu_torch.ops import distance, dither, resize, yiq
+from iivision_tpu_torch.palettes import Palette
 from iivision_tpu_torch.parallel import mesh
-import bench
+from iivision_tpu_torch.sim import PlayerVM
+from iivision_tpu_torch.video_mode import VideoMode
 import torch
-from iivision_tpu.palettes import Palette
-from iivision_tpu.video_mode import VideoMode
 
 mode = VideoMode.DHGR
 dist = distance.ComputedDistance(mode, Palette.NTSC, device="cpu")
@@ -61,7 +72,7 @@ ops, main, aux = encoder.encode_movie(dist, lanes, bytes_tgt, plan, hgr,
                                       seed=0)
 assert yiq.lane_windows(lanes[0, ..., 1], hgr, 1).shape == (32, 128, 15)
 
-clip = torch.as_tensor(np.stack([bench.synth_clip(seconds=0.1, phase=p)
+clip = torch.as_tensor(np.stack([chip_smoke.synth_clip(seconds=0.1, phase=p)
                                  for p in (0.0, 1.0)]))
 lanes_b, bytes_b = mesh.ingest_movies_batch(clip, mode, Palette.NTSC)
 assert lanes_b.shape == (2, 3, 32, 128, 4)
@@ -78,32 +89,55 @@ assert rep.mean_error > 0
 recs = bench_subop.run("cpu", B=1, K=2, ts=(2,),
                        variants=("plain", "plain_i16"))
 assert len(recs) == 2
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
-# the compile-cache opt-out was set only while the shared package loaded
-import os
-assert "IIVISION_NO_COMPILE_CACHE" not in os.environ
+
+# host ingest, the audio track and emission through Movie, then the VM
+tone = (np.sin(np.arange(2940) / 5.0) * 9000).astype(np.float32)
+m = Movie(frames_source=chip_smoke.synth_clip(seconds=0.2), device="cpu",
+          audio_source=audio.Audio(data=tone, rate=14700, bitrate=14700,
+                                   device="cpu"),
+          every_n_video_frames=2, video_mode=VideoMode.HGR)
+with tempfile.TemporaryDirectory() as tmp:
+    out = os.path.join(tmp, "clip.a2m")
+    stats = m.transcode(out)
+    res = PlayerVM().decode(open(out, "rb").read())
+    assert res.ok and res.n_ops == stats["n_ops"] > 0
+    clip_path = os.path.join(tmp, "clip.npy")
+    np.save(clip_path, chip_smoke.synth_clip(seconds=0.2))
+    iivision_tpu_torch.cli.main([clip_path, "--device", "cpu"])
+    assert os.path.exists(os.path.join(tmp, "clip.a2m"))
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not loaded, loaded
 print("no-jax ok", plan.n_ops)
 """
 
 
-def test_port_runs_without_jax():
-    env = dict(os.environ)
-    env.pop("IIVISION_NO_COMPILE_CACHE", None)  # the port sets it itself
+def test_port_runs_without_jax(tmp_path):
+    env = dict(os.environ, XDG_CACHE_HOME=str(tmp_path))
     proc = subprocess.run([sys.executable, "-c", _CHILD], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "no-jax ok" in proc.stdout
 
 
+def imported_roots(path):
+    """Top-level module names a Python file imports, anywhere in it."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
 def test_port_sources_do_not_import_jax():
-    pkg = os.path.join(REPO, "iivision_tpu_torch")
-    for root, _, files in os.walk(pkg):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(root, name)) as f:
-                    text = f.read()
-                assert "import jax" not in text and "from jax" not in text, \
-                    name
-    with open(os.path.join(REPO, "chip_smoke.py")) as f:
-        text = f.read()
-    assert "import jax" not in text and "from jax" not in text
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "iivision_tpu_torch")):
+        paths += [os.path.join(root, n) for n in files if n.endswith(".py")]
+    assert len(paths) > 20
+    for path in paths:
+        bad = imported_roots(path) & {"jax", "jaxlib", "iivision_tpu",
+                                      "bench"}
+        assert not bad, (path, bad)

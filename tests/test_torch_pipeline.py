@@ -11,14 +11,20 @@ import torch
 
 from iivision_tpu import audio as jaudio
 from iivision_tpu.movie import Movie as JaxMovie
-from iivision_tpu.sim import PlayerVM
-from iivision_tpu.video_mode import VideoMode
+from iivision_tpu.video_mode import VideoMode as JVideoMode
 from iivision_tpu_torch import audio as taudio
 from iivision_tpu_torch import cli
 from iivision_tpu_torch.movie import Movie
+from iivision_tpu_torch.sim import PlayerVM
+from iivision_tpu_torch.video_mode import VideoMode
 
 from tests.test_encoder import get_dist
 from tests.test_pipeline import gradient_movie
+
+
+def jm(mode):
+    """The JAX package's VideoMode member of the port's `mode`."""
+    return JVideoMode[mode.name]
 
 
 def check_stream(data, movie, levels):
@@ -54,22 +60,21 @@ def check_movie_matches_jax(tmp_path, mode):
     rgb = gradient_movie(F=4)
     tone = (np.sin(2 * np.pi * 440 * np.arange(4410) / 4410)
             * 16000).astype(np.float32)
-    kw = dict(frames_source=rgb, every_n_video_frames=2, k=8, seed=0,
-              video_mode=mode)
-    jm = JaxMovie(audio_source=jaudio.Audio(data=tone, rate=14700,
-                                            bitrate=14700),
-                  dist=get_dist(mode), **kw)
+    kw = dict(frames_source=rgb, every_n_video_frames=2, k=8, seed=0)
+    jmov = JaxMovie(audio_source=jaudio.Audio(data=tone, rate=14700,
+                                              bitrate=14700),
+                    dist=get_dist(jm(mode)), video_mode=jm(mode), **kw)
     tm = Movie(audio_source=taudio.Audio(data=tone, rate=14700,
                                          bitrate=14700, device="cpu"),
-               device="cpu", **kw)
+               device="cpu", video_mode=mode, **kw)
     p_jax, p_torch = str(tmp_path / "jax.a2m"), str(tmp_path / "torch.a2m")
-    jm.transcode(p_jax)
+    jmov.transcode(p_jax)
     stats = tm.transcode(p_torch)
     data = open(p_torch, "rb").read()
     assert data == open(p_jax, "rb").read()
-    assert stats["n_ops"] == tm.plan.n_ops == jm.plan.n_ops
-    assert np.array_equal(tm.final_main, np.asarray(jm.final_main))
-    assert np.array_equal(tm.final_aux, np.asarray(jm.final_aux))
+    assert stats["n_ops"] == tm.plan.n_ops == jmov.plan.n_ops
+    assert np.array_equal(tm.final_main, np.asarray(jmov.final_main))
+    assert np.array_equal(tm.final_aux, np.asarray(jmov.final_aux))
     check_stream(data, tm, tm.audio.levels())
 
 
