@@ -4,20 +4,30 @@
 
 Builds the port's CUDA kernels from csrc/ with nvcc (one process per
 source, all at once) and checks each against its plain torch version on
-the card: kernel A (all pairs, and elementwise at L = 10 and 18), the
-chunk-start kernel (DHGR and HGR, window and mono bases, both DHGR banks,
-B = 1 and 32), the body kernel's threefry (B = 32 keys, steps up to 2^20,
-four sub-ops) and the body kernel itself (real plan bodies with padded
-steps and a partial step: DHGR k=8 j=1 and k=16 j=4, HGR k=8 j=1, B = 1
-and 32, seeded and deterministic, and tie-heavy bodies whose every choice
-falls to the nonces), kernel B (solo DHGR at both encoder settings, solo
-HGR with its 256 contents, a case where offset 0 is the only companion,
-and batches: 32 DHGR movies at k=16 j=4 and 8 HGR movies at k=8 j=1),
-kernel B's joint variant (DHGR and HGR at k=16 j=4, and a crafted page
-where a non-target content wins) and kernel C (the sub-op microbenchmark
-at B=32, K=16, T=100).  Each kernel's device time is the mean of many
-back-to-back launches between one event pair, queued behind a sleep so
-that the host's wrapper time stays outside the pair.
+the card, bit-equal:
+- kernel A's all-pairs tile: DHGR 1024 x 8192 and HGR 512 x 2048 with
+  a != b, ragged sizes, the symmetric path (one code set twice) on a
+  ragged set in full and on whole DHGR and HGR (16384^2) lanes on sampled
+  rows; kernel A's elementwise entry at L = 10 and 18;
+- the chunk-start kernel: DHGR (both banks) and HGR, window, mono and yiq
+  bases, B = 1 and 32;
+- the body kernel's threefry (B = 32 keys, steps up to 2^20, four
+  sub-ops);
+- the body kernel, default and joint content, on real plan bodies with
+  padded steps and a partial step (DHGR k=8 j=1 and k=16 j=4, HGR k=8 j=1
+  with its 256 contents, B = 1 and 32, seeded and deterministic), on
+  tie-heavy bodies whose every page and offset choice falls to the nonces,
+  and for joint content on bodies whose contents tie (dw all zero, or one
+  cost for every content);
+- kernel B (solo DHGR at both encoder settings, solo HGR, a case where
+  offset 0 is the only companion, batches of 32 DHGR and 8 HGR movies),
+  kernel B's joint variant (DHGR and HGR at k=16 j=4, and a crafted page
+  where a non-target content wins) - the card-side per-step reference,
+  which no path launches - and kernel C (the sub-op microbenchmark at
+  B=32, K=16, T=100).
+Each kernel's device time is the mean of many back-to-back launches
+between one event pair, queued behind a sleep so that the host's wrapper
+time stays outside the pair.
 It reproduces the JAX package's golden stream, then drives each entry
 point of the port with the launch counts set to 0 before it and read
 after it:
@@ -26,7 +36,8 @@ after it:
   (k=8, j=1), through Movie.transcode and the player VM;
 - the full DHGR NTSC LUT (make_tables' path);
 - the sub-op microbenchmark's T sweep (bench_subop.run);
-- 2 s clips in the yiq (DHGR) and mono (HGR) colour models; the mono clip
+- 2 s clips in the yiq colour model (DHGR and HGR: the chunk-start
+  kernel's yiq instantiation) and the mono model (HGR); the mono clip
   builds its store-cost table on the card, and sampled rows of that table
   are held against the plain build;
 - the batch transcode: 32 distinct 10 s clips (`synth_clip`, one phase
@@ -36,14 +47,17 @@ after it:
 - the CLI's batch mode on three .npz clips of 10, 6 and 3 s: every stream
   plays at its own length, and the shortest equals its padded solo encode;
 - the 5 s quality clip of tests/test_quality_regression.py at k=16 j=4,
-  with and without joint content, replayed and scored on the card: each
-  mean error within 1.01x of tests/data/quality_baseline.json, and joint
-  below the default rule's baseline.
+  with and without joint content (the body kernel's joint
+  instantiation), replayed and scored on the card: each mean error within
+  1.01x of tests/data/quality_baseline.json, and joint below the default
+  rule's baseline.
+Kernel B launching on any path fails the run.
 
 A last, uncounted phase traces 1 s clips with torch.profiler (solo and a
-batch of 32 at k=16 j=4, solo at k=8 j=1): device busy share, kernel
-launches per plan step and the kernels that launch most, and holds kernel
-B's and the body kernel's timer figures against the profiler's.
+batch of 32 at k=16 j=4, solo at k=8 j=1, solo joint at k=16 j=4): device
+busy share, kernel launches per plan step and the kernels that launch
+most, and holds kernel B's and the body kernel's timer figures against
+the profiler's.
 
 Every phase prints one line of numbers; any failure raises, giving a
 non-zero exit.  The last two lines are the kernel report and the device
@@ -63,38 +77,49 @@ import time
 
 GOLDEN_SHA = "57fdd52adf53d75101ed121d28d8a5389465c09f99d960ba6c47c20dbdb30fbc"
 
-# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, float32 outside the
-# tensor cores
+# H100 SXM peaks: HBM bytes/s and float32 outside the tensor cores (NVIDIA's
+# data sheet), and int32 for the integer kernels (the chunk-start diff):
+# 64 INT32 lanes per SM x 132 SMs x 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
-# kernel -> (wrapper module, wrapper name, source, the TPU or JAX function
-# it replaces)
+# kernel -> (wrapper module, wrapper name, the wrapper's launch counter,
+# source, the TPU or JAX function it replaces)
 KERNELS = {
-    "chunk_start": ("chunk_start", "chunk_start",
+    "chunk_start": ("chunk_start", "chunk_start", "launches",
                     "iivision_tpu_torch/csrc/chunk_start.cu",
                     "iivision_tpu/encoder.py:540"),
-    "encode_body": ("body", "encode_body", "iivision_tpu_torch/csrc/body.cu",
+    "chunk_start_yiq": ("chunk_start", "chunk_start", "yiq_launches",
+                        "iivision_tpu_torch/csrc/chunk_start.cu",
+                        "iivision_tpu/encoder.py:374"),
+    "encode_body": ("body", "encode_body", "launches",
+                    "iivision_tpu_torch/csrc/body.cu",
                     "iivision_tpu/encoder.py:567"),
-    "threefry_uniform": ("body", "threefry_uniform",
+    "encode_body_joint": ("body", "encode_body", "joint_launches",
+                          "iivision_tpu_torch/csrc/body.cu",
+                          "iivision_tpu/encoder.py:583"),
+    "threefry_uniform": ("body", "threefry_uniform", "launches",
                          "iivision_tpu_torch/csrc/body.cu",
                          "iivision_tpu/encoder.py:695"),
-    "editdist_tile": ("editdist", "pair_distance",
+    "editdist_tile": ("editdist", "pair_distance", "launches",
                       "iivision_tpu_torch/csrc/editdist.cu",
                       "iivision_tpu/ops/editdist.py:232"),
-    "dist_pairs": ("editdist", "dist_pairs_elementwise",
+    "dist_pairs": ("editdist", "dist_pairs_elementwise", "launches",
                    "iivision_tpu_torch/csrc/editdist.cu",
                    "iivision_tpu/ops/editdist.py:232"),
-    "subop_chain": ("subop", "sub_op_chain",
+    "subop_chain": ("subop", "sub_op_chain", "launches",
                     "iivision_tpu_torch/csrc/subop.cu",
                     "iivision_tpu/encoder.py:567"),
-    "subop_chain_joint": ("subop", "sub_op_chain_joint",
+    "subop_chain_joint": ("subop", "sub_op_chain_joint", "launches",
                           "iivision_tpu_torch/csrc/subop.cu",
                           "iivision_tpu/encoder.py:583"),
-    "subop_bench": ("subop_bench", "run_kernel",
+    "subop_bench": ("subop_bench", "run_kernel", "launches",
                     "iivision_tpu_torch/csrc/subop.cu",
                     "tools/bench_subop_pallas.py:183"),
 }
+# kernel B: the card-side per-step reference; no path may launch it
+REFERENCE_ONLY = ("subop_chain", "subop_chain_joint")
 
 
 def wrapper(name):
@@ -105,19 +130,28 @@ def wrapper(name):
                    fn)
 
 
+def launch_count(name) -> int:
+    return getattr(wrapper(name), KERNELS[name][2])
+
+
 def counted(path, want, fn, *args, **kw):
     """Run one path with every launch count at 0; fail unless each kernel
-    in `want` launched.  Returns (fn's result, {kernel: launches})."""
+    in `want` launched, and if kernel B did.  Returns (fn's result,
+    {kernel: launches})."""
     for name in KERNELS:
-        wrapper(name).launches = 0
+        setattr(wrapper(name), KERNELS[name][2], 0)
     t0 = time.time()
     out = fn(*args, **kw)
-    launches = {name: wrapper(name).launches for name in KERNELS}
+    launches = {name: launch_count(name) for name in KERNELS}
     print("launches %s: %s path_s=%.1f" % (path, json.dumps(launches),
                                             time.time() - t0))
     for name in want:
         if launches[name] == 0:
             raise AssertionError("kernel %s never launched on path %s"
+                                 % (name, path))
+    for name in REFERENCE_ONLY:
+        if launches[name]:
+            raise AssertionError("kernel %s launched on path %s"
                                  % (name, path))
     return out, launches
 
@@ -159,6 +193,7 @@ def main():
     check_chunk_start(dev, report)
     check_threefry(dev, report)
     check_body(dev, report)
+    check_body(dev, report, joint=True)
     check_kernel_b(dev, report)
     check_kernel_b_joint(dev, report)
     check_kernel_c(dev, report)
@@ -168,6 +203,7 @@ def main():
     # -- 3. the port's paths, each counted --------------------------------
     dhgr, hgr = VideoMode.DHGR, VideoMode.HGR
     enc = ("chunk_start", "encode_body")
+    yiq = ("chunk_start_yiq", "encode_body")
     totals = {name: 0 for name in KERNELS}
     with tempfile.TemporaryDirectory() as cache:
         os.environ["XDG_CACHE_HOME"] = cache
@@ -180,14 +216,16 @@ def main():
                  (dev,), {}),
                 ("bench_subop", ("subop_bench",), run_bench,
                  (dev, bench_subop, report), {}),
-                ("dhgr_2s_yiq", ("encode_body",), run_movie,
-                 (dev, dhgr, 8, 1, 2), dict(colour_model="yiq")),
+                ("dhgr_2s_yiq", yiq, run_movie, (dev, dhgr, 8, 1, 2),
+                 dict(colour_model="yiq")),
+                ("hgr_2s_yiq", yiq, run_movie, (dev, hgr, 8, 1, 2),
+                 dict(colour_model="yiq")),
                 ("hgr_2s_mono", enc + ("dist_pairs",), run_mono, (dev, hgr),
                  {}),
                 ("batch_dhgr_b32_10s_k16_j4", enc, run_batch, (dev,), {}),
                 ("batch_cli_mixed", enc, run_cli_mixed, (dev,), {}),
                 ("quality_dhgr_5s_k16_j4",
-                 enc + ("dist_pairs", "subop_chain_joint"), run_quality,
+                 enc + ("dist_pairs", "encode_body_joint"), run_quality,
                  (dev,), {})):
             _, launches = counted(path, want, fn, *args, **kw)
             for name, n in launches.items():
@@ -200,7 +238,7 @@ def main():
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = []
-    for name, (_, _, src, replaces) in KERNELS.items():
+    for name, (_, _, _, src, replaces) in KERNELS.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=totals[name])
         entry.update((k, report[name][k]) for k in keys)
@@ -215,10 +253,12 @@ def main():
     return 0
 
 
-def bound(nbytes: float, ops: float = 0.0) -> dict:
+def bound(nbytes: float, ops: float = 0.0, int_ops: float = 0.0) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the HBM rate and the float32 operations over the non-tensor peak."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    the HBM rate and the operations over the card's rate for their type
+    (`ops` float32 outside the tensor cores, `int_ops` int32)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / FP32_OPS_PER_S + int_ops / INT32_OPS_PER_S
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -300,8 +340,16 @@ def wrapper_ms(fn, reps: int, setup=None) -> float:
 
 
 def check_kernel_a(dev, report):
-    """Kernel A against its plain version: all pairs on DHGR and HGR
-    blocks, elementwise on 8192 random pairs; exact equality."""
+    """Kernel A against its plain version, exact equality.  All pairs: DHGR
+    1024 x 8192 and HGR 512 x 2048 with a != b, ragged sizes (DHGR
+    1000 x 777, HGR 300 x 517 from other rows), the symmetric path (one code
+    set passed twice) on ragged sets in full (DHGR 999, HGR 1000), one
+    code set under an asymmetric cost matrix (the kernel's own check must
+    send it the general way), and whole DHGR 8192^2 and HGR 16384^2 lanes
+    on the symmetric path on 64 sampled rows each.
+    Elementwise: 8192 random pairs at L = 10 and 18.  Times per lane: DHGR
+    and HGR on the symmetric path (the LUT build's call), DHGR on the
+    general path beside them."""
     import numpy as np
     import torch
 
@@ -309,32 +357,80 @@ def check_kernel_a(dev, report):
     from iivision_tpu_torch.palettes import Palette
     from iivision_tpu_torch.video_mode import VideoMode
 
+    D, H = VideoMode.DHGR, VideoMode.HGR
     sub = editdist.cost_matrix(Palette.NTSC, dev)
-    errs = []
-    for mode, na, nb in ((VideoMode.DHGR, 1024, 8192),
-                         (VideoMode.HGR, 512, 2048)):
-        codes = editdist.lane_codes(mode, 0, dev)
-        a, bb = codes[:na].contiguous(), codes[:nb].contiguous()
-        got = as_i32(editdist.pair_distance(a, bb, sub))
-        want = editdist.dp_distance_tile(a, bb, sub)
+    rng = np.random.RandomState(3)
+    entry = report["editdist_tile"] = dict(max_abs_err=0)
+
+    def hold(what, got, a, bb, costs=sub):
+        want = editdist.dp_distance_tile(a, bb, costs)
         if int(want.max()) >= 1 << 16:
-            raise AssertionError("%s distances overflow uint16" % mode.name)
-        err = int((got - want).abs().max())
-        print("kernel A all-pairs %s %dx%d L=%d: max_abs_err=%d" % (
-            mode.name, na, nb, codes.shape[1], err))
+            raise AssertionError("%s: distances overflow uint16" % what)
+        err = int((as_i32(got) - want).abs().max())
+        print("kernel A all-pairs %s: max_abs_err=%d" % (what, err))
         if err:
-            raise AssertionError("kernel A all-pairs disagrees with plain")
-        errs.append(err)
-    # full DHGR lane, the LUT entry point's shape
-    codes = editdist.lane_codes(VideoMode.DHGR, 0, dev)
-    ms = cuda_ms(lambda: editdist.pair_distance(codes, codes, sub), 5)
-    plain_ms = cuda_ms(lambda: editdist.dp_distance_tile(codes, codes, sub), 2)
-    print("kernel A all-pairs 8192x8192 lane: ms=%.3f plain_ms=%.3f" % (
-        ms, plain_ms))
-    n, L = codes.shape
-    report["editdist_tile"] = dict(max_abs_err=max(errs), ms=ms,
-                                   plain_ms=plain_ms,
-                                   **bound(2 * n * L * 4 + 1024 + n * n * 2))
+            raise AssertionError("kernel A all-pairs %s disagrees with plain"
+                                 % what)
+
+    for mode, (ra, na), (rb, nb) in ((D, (0, 1024), (0, 8192)),
+                                     (H, (0, 512), (0, 2048)),
+                                     (D, (3, 1000), (1001, 777)),
+                                     (H, (7, 300), (900, 517))):
+        codes = editdist.lane_codes(mode, 1, dev)
+        a = codes[ra:ra + na].contiguous()
+        bb = codes[rb:rb + nb].contiguous()
+        if editdist.same_codes(a, bb):
+            raise AssertionError("a != b taken for one code set")
+        hold("%s %dx%d L=%d" % (mode.name, na, nb, codes.shape[1]),
+             editdist.pair_distance(a, bb, sub), a, bb)
+    # the symmetric path on ragged sets, and one code set under a cost
+    # matrix made asymmetric, which the kernel must take the general way
+    asym = sub.clone()
+    asym[3, 9] += 7
+    for mode, n, costs, what in ((D, 999, sub, "symmetric"),
+                                 (H, 1000, sub, "symmetric"),
+                                 (D, 700, asym, "same codes, asymmetric "
+                                                "costs")):
+        a = editdist.lane_codes(mode, 1, dev)[2:2 + n].contiguous()
+        if not editdist.same_codes(a, a):
+            raise AssertionError("one code set twice not taken as such")
+        hold("%s %dx%d %s" % (mode.name, n, n, what),
+             editdist.pair_distance(a, a, costs), a, a, costs)
+
+    # whole lanes on the symmetric path, sampled rows, then timed
+    for mode, tag in ((D, ""), (H, "_hgr")):
+        codes = editdist.lane_codes(mode, 0, dev)
+        n, L = codes.shape
+        out = editdist.pair_distance(codes, codes, sub)
+        rows = torch.as_tensor(rng.randint(0, n, 64), device=dev)
+        hold("%s %dx%d lane symmetric, 64 rows" % (mode.name, n, n),
+             out.view(torch.int16)[rows], codes[rows], codes)
+        ms = cuda_ms(lambda: editdist.pair_distance(codes, codes, sub, out),
+                     5)
+        plain_ms = cuda_ms(
+            lambda: editdist.dp_distance_tile(codes, codes, sub), 1)
+        # bytes: both code sets read, the cost matrix, the uint16 matrix
+        # written; float32 operations (the function's type, and the
+        # kernel's): an add, two compares and a min per step of the
+        # n(n+1)/2 pairs the symmetric path needs
+        bnd = bound(2 * n * L * 4 + 1024 + n * n * 2,
+                    n * (n + 1) / 2 * L * 4)
+        line = "kernel A all-pairs %s %dx%d lane symmetric: ms=%.4f " \
+               "plain_ms=%.3f bound_ms=%.4f (%s)" % (
+                   mode.name, n, n, ms, plain_ms, bnd["bound_ms"],
+                   bnd["bound_by"])
+        if not tag:
+            other = codes.clone()
+            ms_general = cuda_ms(
+                lambda: editdist.pair_distance(codes, other, sub, out), 5)
+            line += " general_path_ms=%.4f" % ms_general
+            entry.update(bnd, ms=ms, plain_ms=plain_ms,
+                         ms_general=ms_general)
+        else:
+            entry.update(ms_hgr=ms, plain_ms_hgr=plain_ms,
+                         bound_ms_hgr=bnd["bound_ms"])
+        print(line)
+        del out
 
     # the encoder's chunk-start diff shapes: both lanes of a bank, L = 10
     # (DHGR) and L = 18 (HGR), under the NTSC window basis
@@ -390,24 +486,29 @@ def random_state(dev, rng, shape, hi: int):
 
 def check_chunk_start(dev, report):
     """The chunk-start kernel against chunk_start_plain, bit-equal up and
-    dw: DHGR (both banks) and HGR, window and mono bases, B = 1 and 32, on
-    seeded random banks (8-bit bytes), targets and state."""
+    dw: DHGR (both banks) and HGR, window and mono bases, B = 1 and 32, and
+    the yiq instantiation (its own entry): DHGR banks 0 and 1 and HGR, B = 1
+    and 32; on seeded random banks (8-bit bytes), targets and state."""
     import numpy as np
     import torch
 
     from iivision_tpu_torch.ops import chunk_start, distance
     from iivision_tpu_torch.palettes import Palette
+    from iivision_tpu_torch.screen import spec_for_mode
     from iivision_tpu_torch.video_mode import VideoMode
 
-    entry = report["chunk_start"] = dict(max_abs_err=0)
-    for mode, model, B, bank, tag in (
-            (VideoMode.DHGR, "window", 1, 0, ""),
-            (VideoMode.DHGR, "window", 1, 1, "_aux"),
-            (VideoMode.DHGR, "mono", 32, 1, "_mono_b32"),
-            (VideoMode.DHGR, "window", 32, 0, "_b32"),
-            (VideoMode.HGR, "window", 1, 0, "_hgr"),
-            (VideoMode.HGR, "mono", 32, 0, "_hgr_mono_b32")):
-        rng = np.random.RandomState(len(entry) + 11)
+    D, H = VideoMode.DHGR, VideoMode.HGR
+    report["chunk_start"] = dict(max_abs_err=0)
+    report["chunk_start_yiq"] = dict(max_abs_err=0)
+    for i, (mode, model, B, bank, tag) in enumerate((
+            (D, "window", 1, 0, ""), (D, "window", 1, 1, "_aux"),
+            (D, "mono", 32, 1, "_mono_b32"), (D, "window", 32, 0, "_b32"),
+            (H, "window", 1, 0, "_hgr"), (H, "mono", 32, 0, "_hgr_mono_b32"),
+            (D, "yiq", 1, 0, ""), (D, "yiq", 1, 1, "_aux"),
+            (D, "yiq", 32, 1, "_aux_b32"), (D, "yiq", 32, 0, "_b32"),
+            (H, "yiq", 1, 0, "_hgr"), (H, "yiq", 32, 0, "_hgr_b32"))):
+        entry = report["chunk_start_yiq" if model == "yiq" else "chunk_start"]
+        rng = np.random.RandomState(i + 11)
         nb = chunk_start.n_banks(mode)
         F, frame = 3, 1
         banks = random_state(dev, rng, (B, nb, 32, 256), 256)
@@ -426,24 +527,33 @@ def check_chunk_start(dev, report):
         torch.cuda.synchronize()
         err = max(int((g - w).abs().max()) for g, w in zip(got, want))
         if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError("chunk-start kernel (%s) disagrees with "
-                                 "plain" % (tag or "DHGR"))
+            raise AssertionError("chunk-start kernel (%s %s) disagrees with "
+                                 "plain" % (model, tag or "DHGR"))
         state = [up0.clone(), dw0.clone()]
         ms = cuda_ms(lambda: chunk_start.chunk_start(
             banks, lanes, frame, bank, sub, *state, mode), 200)
         plain_ms = cuda_ms(lambda: chunk_start.chunk_start_plain(
             banks, lanes, frame, bank, sub, *state, mode), 3)
         # bytes: every bank row, the bank's two target lanes, up read and
-        # written, dw written, the cost matrix
-        nbytes = B * (nb * 8192 * 4 + 8192 * 4 + 3 * 8192 * 4) + 1024
+        # written, dw written, the cost basis (for yiq the window costs the
+        # offsets index, at most one int32 per offset and window)
+        nbytes = B * (nb * 8192 * 4 + 8192 * 4 + 3 * 8192 * 4)
+        nbytes += (min(sub.numel(), B * 8192 * sub.shape[1]) * 4
+                   if model == "yiq" else 1024)
+        # int32 operations at the 240 offsets of a page that are not
+        # holes: one add per yiq window, or an add, two compares and a min
+        # per DP step
+        int_ops = B * 32 * 240 * (sub.shape[1] if model == "yiq"
+                                  else 4 * spec_for_mode(mode).MASKED_DOTS)
+        bnd = bound(nbytes, int_ops=int_ops)
         print("chunk_start %s %s B=%d bank=%d: max_abs_err=%d ms=%.4f "
-              "plain_ms=%.4f bound_ms=%.5f" % (
+              "plain_ms=%.4f bound_ms=%.5f (%s)" % (
                   mode.name, model, B, bank, err, ms, plain_ms,
-                  bound(nbytes)["bound_ms"]))
+                  bnd["bound_ms"], bnd["bound_by"]))
         entry["ms" + tag] = ms
         entry["plain_ms" + tag] = plain_ms
         if not tag:
-            entry.update(bound(nbytes))
+            entry.update(bnd)
 
 
 def check_threefry(dev, report):
@@ -529,12 +639,17 @@ def body_inputs(dev, mode, k: int, j: int, B: int, seed: int,
     return plan, b0, state, lanes, bytes_tgt, table, nvalid, ops
 
 
-def check_body(dev, report):
+def check_body(dev, report, joint: bool = False):
     """The body kernel against encode_body_plain (the per-step torch loop
     with the plain sub-op chain and step_nonces), state and records
     bit-equal, on real plan bodies that hold padded and partial steps:
-    DHGR k=8 j=1 and k=16 j=4, HGR k=8 j=1, B = 1 and 32, seeded and
-    deterministic, and tie-heavy bodies (every up equal)."""
+    DHGR k=8 j=1 and k=16 j=4, HGR k=8 j=1 (256 contents), B = 1 and 32,
+    seeded and deterministic, and tie-heavy bodies (every up equal).
+    joint: the kernel's joint instantiation (its own entry), timed at DHGR
+    k=16 j=4 (the quality clip's setting) B = 1 and 32 and on HGR, plus
+    bodies whose contents tie: dw all zero (no companion gain: the
+    cheapest contents at the primary tie) and one cost for every content
+    (every content ties)."""
     import torch
 
     from iivision_tpu_torch.ops import body
@@ -542,63 +657,87 @@ def check_body(dev, report):
     from iivision_tpu_torch.video_mode import VideoMode
 
     D, H = VideoMode.DHGR, VideoMode.HGR
-    entry = report["encode_body"] = dict(max_abs_err=0)
-    for mode, k, j, B, seeded, tie, tag in (
-            (D, 8, 1, 1, True, False, ""),
-            (D, 8, 1, 1, False, False, "_det"),
-            (D, 16, 4, 1, True, False, "_k16_j4"),
-            (D, 16, 4, 32, True, False, "_b32_k16_j4"),
-            (D, 16, 4, 32, False, False, "_b32_k16_j4_det"),
-            (H, 8, 1, 1, True, False, "_hgr"),
-            (H, 8, 1, 32, True, False, "_hgr_b32"),
-            (D, 8, 1, 32, True, True, "_tie_b32"),
-            (D, 16, 4, 32, True, True, "_tie_b32_k16_j4"),
-            (H, 8, 1, 1, False, True, "_tie_hgr_det")):
+    name = "encode_body_joint" if joint else "encode_body"
+    entry = report[name] = dict(max_abs_err=0)
+    cases = ((D, 16, 4, 1, True, None, ""),
+             (D, 16, 4, 1, False, None, "_det"),
+             (D, 16, 4, 32, True, None, "_b32"),
+             (D, 8, 1, 1, True, None, "_k8_j1"),
+             (D, 8, 1, 32, False, None, "_k8_j1_b32_det"),
+             (H, 8, 1, 1, True, None, "_hgr"),
+             (H, 8, 1, 32, True, None, "_hgr_b32"),
+             (D, 16, 4, 32, True, "tie", "_tie_b32"),
+             (D, 16, 4, 1, True, "zero_dw", "_zero_dw"),
+             (H, 8, 1, 1, False, "one_cost", "_one_cost_hgr")) if joint else (
+        (D, 8, 1, 1, True, None, ""),
+        (D, 8, 1, 1, False, None, "_det"),
+        (D, 16, 4, 1, True, None, "_k16_j4"),
+        (D, 16, 4, 32, True, None, "_b32_k16_j4"),
+        (D, 16, 4, 32, False, None, "_b32_k16_j4_det"),
+        (H, 8, 1, 1, True, None, "_hgr"),
+        (H, 8, 1, 32, True, None, "_hgr_b32"),
+        (D, 8, 1, 32, True, "tie", "_tie_b32"),
+        (D, 16, 4, 32, True, "tie", "_tie_b32_k16_j4"),
+        (H, 8, 1, 1, False, "tie", "_tie_hgr_det"))
+    for mode, k, j, B, seeded, kind, tag in cases:
         plan, b0, state, lanes, bytes_tgt, table, nvalid, ops = body_inputs(
-            dev, mode, k, j, B, 50 + len(entry), tie)
+            dev, mode, k, j, B, 50 + len(entry) + 100 * joint, kind == "tie")
+        if kind == "zero_dw":
+            state[1].zero_()
+        elif kind == "one_cost":
+            table = torch.full_like(table, 100)
         Sc = plan.chunk_steps
         frame, bank = int(plan.step_frame[b0]), int(plan.step_bank[b0])
         keys = trandom.key_words(range(B), dev) if seeded else None
         got = [x.clone() for x in state] + [ops.clone()]
         want = [x.clone() for x in state] + [ops.clone()]
         body.encode_body(*got[:3], lanes, bytes_tgt, frame, bank, table,
-                         keys, nvalid, b0, Sc, got[3], mode)
+                         keys, nvalid, b0, Sc, got[3], mode, joint)
         body.encode_body_plain(*want[:3], lanes, bytes_tgt, frame, bank,
-                               table, keys, nvalid, b0, Sc, want[3], mode)
+                               table, keys, nvalid, b0, Sc, want[3], mode,
+                               joint)
         torch.cuda.synchronize()
         err = max(int((g.int() - w.int()).abs().max())
                   for g, w in zip(got, want))
         if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
             bad = [i for i, (g, w) in enumerate(zip(got, want))
                    if not torch.equal(g, w)]
-            raise AssertionError("body kernel (%s) disagrees with plain in "
-                                 "%s (up, dw, banks, ops)" % (tag or "DHGR",
-                                                              bad))
+            raise AssertionError("%s kernel (%s) disagrees with plain in %s "
+                                 "(up, dw, banks, ops)" % (
+                                     name, tag or mode.name, bad))
         if not (got[3][b0:b0 + Sc] != 7).any():
-            raise AssertionError("body %s wrote no record" % tag)
+            raise AssertionError("%s %s wrote no record" % (name, tag))
         st = [x.clone() for x in state] + [ops.clone()]
         ms = cuda_ms(lambda: body.encode_body(
             *st[:3], lanes, bytes_tgt, frame, bank, table, keys, nvalid, b0,
-            Sc, st[3], mode), 100)
+            Sc, st[3], mode, joint), 50 if joint else 100)
         plain_ms = cuda_ms(lambda: body.encode_body_plain(
             *st[:3], lanes, bytes_tgt, frame, bank, table, keys, nvalid, b0,
-            Sc, st[3], mode), 2)
+            Sc, st[3], mode, joint), 2)
         nv = plan.step_nvalid[b0:b0 + Sc]
         run = int((nv > 0).sum())
+        C = table.shape[1]
         # bytes per movie: up, dw and the bank bytes read and written, the
         # target bytes and the bank's two target lanes, one table read per
-        # offset per sub-op run, the body's records
+        # offset per sub-op run, the body's records; joint content adds the
+        # bank's table rows (each read once) and, per offset and content of
+        # every sub-op run, a float subtract and compare
         nbytes = B * (3 * 2 * 8192 * 4 + 2 * 8192 * 4
                       + run * k * j * 256 * 2 + Sc * k * j * 6)
-        print("encode_body %s k=%d j=%d B=%d seeded=%s tie=%s steps=%d "
-              "nvalid=%s: max_abs_err=%d ms=%.4f plain_ms=%.4f "
-              "bound_ms=%.5f" % (mode.name, k, j, B, seeded, tie, Sc,
-                                 nv.tolist(), err, ms, plain_ms,
-                                 bound(nbytes)["bound_ms"]))
+        ops_f = 0.0
+        if joint:
+            nbytes += B * 8192 * C * 2
+            ops_f = 2.0 * B * run * k * j * 256 * C
+        bnd = bound(nbytes, ops_f)
+        print("%s %s k=%d j=%d B=%d seeded=%s %s steps=%d nvalid=%s: "
+              "max_abs_err=%d ms=%.4f plain_ms=%.4f bound_ms=%.5f (%s)" % (
+                  name, mode.name, k, j, B, seeded, kind or "", Sc,
+                  nv.tolist(), err, ms, plain_ms, bnd["bound_ms"],
+                  bnd["bound_by"]))
         entry["ms" + tag] = ms
         entry["plain_ms" + tag] = plain_ms
         if not tag:
-            entry.update(bound(nbytes))
+            entry.update(bnd)
 
 
 def subop_inputs(dev, mode, k: int, j: int, seed: int, B: int = 1):
@@ -1245,11 +1384,11 @@ def profiled_kernels(prof):
 
 def trace_encodes(dev, report, seconds: float = 1.0, B: int = 32):
     """torch.profiler over 1 s DHGR encodes on ingested targets - solo and
-    a batch of B at k=16 j=4, solo at k=8 j=1 -: device busy share (kernel
-    time over encode wall), kernel launches per plan step, and the device
-    kernels that launch most.  Then the profiler's per-launch device time
-    of the body kernel and of kernel B (50 launches at the DHGR k=8 j=1
-    shape) beside the event timer's."""
+    a batch of B at k=16 j=4, solo at k=8 j=1, solo joint at k=16 j=4 -:
+    device busy share (kernel time over encode wall), kernel launches per
+    plan step, and the device kernels that launch most.  Then the
+    profiler's per-launch device time of the body kernel and of kernel B
+    (50 launches at the DHGR k=8 j=1 shape) beside the event timer's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1265,7 +1404,7 @@ def trace_encodes(dev, report, seconds: float = 1.0, B: int = 32):
     dist = distance.ComputedDistance(mode, Palette.NTSC, device=dev)
     body_us = None
     for tag, nb, k, j in (("solo", 1, 16, 4), ("batch", B, 16, 4),
-                          ("solo", 1, 8, 1)):
+                          ("solo", 1, 8, 1), ("solo_joint", 1, 16, 4)):
         plan, _ = encoder.plan_movie(
             n_frames=int(seconds * 30), n_audio_ticks=int(seconds * 14700),
             input_frame_rate=30.0, ticks_per_second=14700.0,
@@ -1276,7 +1415,8 @@ def trace_encodes(dev, report, seconds: float = 1.0, B: int = 32):
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.time()
             encoder.encode_movies(dist, lanes_b[:nb], bytes_b[:nb], plan,
-                                  mode, list(range(nb)))
+                                  mode, list(range(nb)),
+                                  joint=tag == "solo_joint")
             torch.cuda.synchronize()
             wall = time.time() - t0
         by_name, launches = profiled_kernels(prof)

@@ -36,14 +36,14 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # (name, argtypes) of every C entry point; each returns a cudaError_t
 SIGNATURES = {
-    "iiv_editdist_tile": [_P, _I, _P, _I, _I, _P, _P, _P],
+    "iiv_editdist_tile": [_P, _I, _P, _I, _I, _P, _I, _P, _P],
     "iiv_dist_pairs": [_P, _P, _L, _I, _P, _P, _P],
     "iiv_subop_chain": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                         _P],
     "iiv_subop_bench": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-    "iiv_chunk_start": [_P, _P, _I, _I, _I, _P, _I, _I, _P, _P, _P],
+    "iiv_chunk_start": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P],
     "iiv_encode_body": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                        _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+                        _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P],
     "iiv_threefry_uniform": [_P, _I, _P, _I, _I, _I, _P, _P, _P],
 }
 

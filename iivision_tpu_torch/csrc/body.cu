@@ -2,18 +2,42 @@
 //
 // Replaces the JAX encoder's body scan: `step_body` and `sub_op` under it
 // (iivision_tpu/encoder.py:567-759, XLA in the JAX package, not Pallas),
-// with the default content rule, for DHGR and HGR and every colour model.
-// One launch runs steps s0 .. s0+Sc-1 of the plan.  Each step:
+// for DHGR and HGR and every colour model, with either content rule: the
+// default (the target byte at the primary offset) and the joint rule of
+// `--joint_content` (encoder.py:583-610, :663-676), one instantiation each
+// (template <bool kJoint>).  One launch runs steps s0 .. s0+Sc-1 of the
+// plan.  Each step:
 //   1. page scores: max(up) over each page's 256 offsets, times 256, plus
 //      255 x the page's nonce (two roundings, as the two torch ops do);
 //   2. the k best pages, stably: rank_p = #{q: s_q > s_p} + #{q < p:
 //      s_q == s_p}, the order of torch.sort(stable=True) and lax.top_k;
 //   3. j sequential sub-ops on each selected page (kernel B's arithmetic,
 //      op for op: csrc/subop.cu): primary offset by argmax of up*256 +
-//      nonce*255, content = the target byte there, three companion rounds
-//      against dw - cost, gated updates, one record per sub-op.
+//      nonce*255, the content byte, three companion rounds against
+//      dw - cost, gated updates, one record per sub-op.
 // A step whose plan nvalid is 0 is skipped whole: no state change, no nonce
 // draw; its records stay the padding op the caller wrote.
+//
+// The content byte.  The default rule reads the target byte at the primary
+// offset.  The joint rule scores every content c of the page:
+//   prim[c] = dw[off0] - cost(off0, c)
+//   comp[c] = sum of the three largest positive dw[t] - cost(t, c) over
+//             offsets t != off0 with up[t] > 0
+// and takes argmax_c(prim + ((a + b) + c)), the first c on ties; the
+// primary then keeps its residual (up = dw = cost(off0, content)).  Every
+// term is an integer below 2^18, exact in float32, so the top three may be
+// found in any order.  Slot r's warp does it alone: it lists the page's
+// eligible offsets (up > 0, not the primary) in ascending order in a
+// per-warp shared-memory list (table row x C, dw + 2^23), then each lane
+// owns four consecutive contents per pass of 128 (one pass for DHGR's
+// C = 128, two for HGR's 256) and keeps their top threes in registers;
+// each listed offset costs one 8-byte table load per lane (the warp's 32
+// loads are the row's 256 contiguous bytes; the int16 table is 8 MB for
+// DHGR and sits in L2), eight loads in flight per round.  The costs
+// become floats by their bits (0x4B000000 | cost is 2^23 + cost), not by
+// int-to-float conversions, and the top three is a branch-free min/max
+// insert.  A warp argmax over the lanes' best contents, with the
+// first-index tie rule, picks the byte.
 //
 // Nonces are drawn inside: threefry2x32 (20 rounds, rotations 13/15/26/6
 // and 17/29/16/24, key parity 0x1BD11BDA) in native uint32 arithmetic, the
@@ -26,23 +50,30 @@
 // The deterministic encoder (keys NULL) uses zeros.
 //
 // Grid B: one block per movie, 1024 threads (32 warps).  The active bank's
-// state lives in dynamic shared memory for the whole body (96 KB): up and
-// dw as float32 (converted from the int32 state with __int2float_rn, as
-// torch's .to(float32) rounds), by and tb as uint8, and each offset's
-// store-cost table row (lane * R + target lane value) as uint16.  Warp p
-// reduces page p's maximum; warp 0 ranks; warp r < k then runs slot r's
-// sub-ops on its own page, each lane holding 8 offsets (t = 32 i + lane)
-// in registers, each argmax a local 8-way scan plus five butterfly
-// shuffles with kernel B's tie rule (the first maximal index).  No block
-// barrier sits inside a sub-op chain.  At the end up and dw go back to
-// int32 with __float2int_rz (torch's truncation) and by to the bank bytes.
+// state lives in dynamic shared memory for the whole body (96 KB, plus
+// 64 KB of per-warp offset lists for the joint rule): up and dw as float32
+// (converted from the int32 state with __int2float_rn, as torch's
+// .to(float32) rounds), by and tb as uint8, and each offset's store-cost
+// table row (lane * R + target lane value) as uint16.  Warp p reduces page
+// p's maximum; warp 0 ranks; warp r < k then runs slot r's sub-ops on its
+// own page, each lane holding 8 offsets (t = 32 i + lane) in registers,
+// each argmax a local 8-way scan plus five butterfly shuffles with kernel
+// B's tie rule (the first maximal index).  No block barrier sits inside a
+// sub-op chain.  At the end up and dw go back to int32 with __float2int_rz
+// (torch's truncation) and by to the bank bytes.
 //
 // What bounds it: per movie and body about 0.5 MB of traffic (state in and
 // out, targets, table reads, records), 0.15 us at 3.35 TB/s, so memory is
-// not the limit.  The floor is the dependent chain: Sc steps x (one page
-// reduction + one rank + j x 4 warp argmaxes), each argmax a few hundred
-// cycles of shuffles, plus 8 threefry blocks per lane per sub-op.  A batch
-// fills B SMs; one movie runs on one SM.
+// not the limit.  The default rule's floor is the dependent chain: Sc steps
+// x (one page reduction + one rank + j x 4 warp argmaxes), each argmax a
+// few hundred cycles of shuffles, plus 8 threefry blocks per lane per
+// sub-op.  The joint rule adds, per sub-op and page, up to 256 x C table
+// reads and top-three inserts on one warp: its floor is that warp's
+// instruction stream (about 30 instructions per listed offset and lane per
+// pass) and the L2 latency of its table loads, which the eight loads in
+// flight and the other slots' warps hide (on an H100, eight in flight
+// ran a DHGR k=16 j=4 body 22% faster than four).  A batch fills B SMs;
+// one movie runs on one SM.
 //
 // iiv_threefry_uniform exposes the same threefry to tests: it writes the
 // nonces of given keys and steps in ops/random.step_nonces' layout.
@@ -62,6 +93,10 @@ constexpr int kPerLane = kOffsets / 32;    // offsets per lane of a page warp
 constexpr unsigned kFull = 0xffffffffu;
 // dynamic shared memory: up, dw (float), row (uint16), by, tb (uint8)
 constexpr int kSmemBytes = kCells * (4 + 4 + 2 + 1 + 1);
+// the joint rule's per-warp lists of eligible offsets: (row * C, dw + 2^23)
+// as an int2, 256 entries each
+constexpr int kListBytes = (kThreads / 32) * kOffsets * (4 + 4);
+constexpr int kJointBatch = 8;  // table loads in flight per lane
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -118,6 +153,33 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   }
 }
 
+// Keep the three largest values seen (a >= b >= c; all start at 0, so only
+// positive values enter, as the JAX form's where(score > 0, score, 0)): a
+// branch-free insert.
+__device__ __forceinline__ void top3_insert(float v, float& a, float& b,
+                                            float& c) {
+  const float below_a = fminf(a, v);
+  a = fmaxf(a, v);
+  const float below_b = fminf(b, below_a);
+  b = fmaxf(b, below_a);
+  c = fmaxf(c, below_b);
+}
+
+// 2^23: a float's unit in the last place is 1 from here to 2^24
+constexpr float kMagic = 8388608.f;
+
+// The four int16 costs of one 8-byte table load, each as the float
+// 2^23 + cost: the bits 0x4B000000 | cost are exactly that float for costs
+// 0..32767 (store costs are distances, below 2^15), so no int-to-float
+// conversion is issued; (dw + 2^23) - (2^23 + cost) is then dw - cost
+// exactly, as every value is an integer below 2^23.
+__device__ __forceinline__ void unpack4(uint2 w, float* c) {
+  c[0] = __uint_as_float(__byte_perm(w.x, 0x4B000000u, 0x7610u));
+  c[1] = __uint_as_float(__byte_perm(w.x, 0x4B000000u, 0x7632u));
+  c[2] = __uint_as_float(__byte_perm(w.y, 0x4B000000u, 0x7610u));
+  c[3] = __uint_as_float(__byte_perm(w.y, 0x4B000000u, 0x7632u));
+}
+
 struct Body {
   int32_t* up;  // (B, n_banks, 32, 256) int32 state, updated at `bank`
   int32_t* dw;
@@ -132,11 +194,92 @@ struct Body {
       j;
 };
 
+// The joint content of one sub-op on page P (the header's rule), computed
+// by one warp; every lane gets it.  upv / dwv: the lanes' live state
+// (offset i * 32 + lane); list: the warp's offset list.
+__device__ int joint_content(const Body& a, const uint16_t* row_p,
+                             const float* upv, const float* dwv, int off0,
+                             int2* list) {
+  const int lane = threadIdx.x & 31;
+  // eligible offsets, ascending: (row * C, dw + 2^23) of each
+  int n = 0;
+  float d0 = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) {
+    const int o = i * 32 + lane;
+    if (o == off0) d0 = dwv[i];
+    const bool e = upv[i] > 0.f && o != off0;
+    const unsigned m = __ballot_sync(kFull, e);
+    if (e)
+      list[n + __popc(m & ((1u << lane) - 1u))] =
+          make_int2(static_cast<int>(row_p[o]) * a.C,
+                    __float_as_int(__fadd_rn(dwv[i], kMagic)));
+    n += __popc(m);
+  }
+  // dw at the primary, + 2^23
+  d0 = __fadd_rn(__shfl_sync(kFull, d0, off0 & 31), kMagic);
+  const int row0 = static_cast<int>(row_p[off0]) * a.C;
+  __syncwarp();
+
+  float bv = -FLT_MAX;
+  int bi = INT_MAX;
+  for (int q = 0; q < a.C; q += 4 * 32) {
+    // this pass's contents of the lane: q + 4 * lane + m, m < 4
+    const int16_t* tq = a.table + q + 4 * lane;
+    float t1[4] = {0.f, 0.f, 0.f, 0.f}, t2[4] = {0.f, 0.f, 0.f, 0.f},
+          t3[4] = {0.f, 0.f, 0.f, 0.f};
+    int e = 0;
+    for (; e + kJointBatch <= n; e += kJointBatch) {
+      int2 at[kJointBatch];
+      uint2 w[kJointBatch];
+#pragma unroll
+      for (int x = 0; x < kJointBatch; ++x) {
+        at[x] = list[e + x];
+        w[x] = *reinterpret_cast<const uint2*>(tq + at[x].x);
+      }
+#pragma unroll
+      for (int x = 0; x < kJointBatch; ++x) {
+        float c[4];
+        unpack4(w[x], c);
+        const float d = __int_as_float(at[x].y);
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          top3_insert(__fsub_rn(d, c[m]), t1[m], t2[m], t3[m]);
+      }
+    }
+    for (; e < n; ++e) {
+      const int2 at = list[e];
+      float c[4];
+      unpack4(*reinterpret_cast<const uint2*>(tq + at.x), c);
+      const float d = __int_as_float(at.y);
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        top3_insert(__fsub_rn(d, c[m]), t1[m], t2[m], t3[m]);
+    }
+    float c0[4];
+    unpack4(*reinterpret_cast<const uint2*>(tq + row0), c0);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const float v = __fadd_rn(__fsub_rn(d0, c0[m]),
+                                __fadd_rn(__fadd_rn(t1[m], t2[m]), t3[m]));
+      if (v > bv) {  // contents ascend within the lane: keeps the first
+        bv = v;
+        bi = q + 4 * lane + m;
+      }
+    }
+  }
+  warp_argmax(bv, bi);
+  __syncwarp();  // the list is rewritten by the next sub-op
+  return bi;
+}
+
 // Slot r's j sub-ops on page P (one warp; kernel B's math per offset).
+template <bool kJoint>
 __device__ void run_slot(const Body& a, float* up_s, float* dw_s,
                          const uint16_t* row_s, uint8_t* by_s,
                          const uint8_t* tb_s, int movie, int s, int r, int P,
-                         int nv, bool seeded, uint2 skey, int pad) {
+                         int nv, bool seeded, uint2 skey, int pad,
+                         int2* list) {
   const int lane = threadIdx.x & 31;
   float* up_p = up_s + P * kOffsets;
   float* dw_p = dw_s + P * kOffsets;
@@ -168,7 +311,9 @@ __device__ void run_slot(const Body& a, float* up_s, float* dw_s,
     }
     warp_argmax(bv, bi);
     const int off0 = bi;
-    const int content = tb_s[P * kOffsets + off0];
+    const int content =
+        kJoint ? joint_content(a, row_s + P * kOffsets, upv, dwv, off0, list)
+               : tb_s[P * kOffsets + off0];
 
     // companions: pending offsets the store improves, three rounds
     float scv[kPerLane], sl[kPerLane];
@@ -213,8 +358,9 @@ __device__ void run_slot(const Body& a, float* up_s, float* dw_s,
       for (int i = 0; i < kPerLane; ++i) {
         const int o = i * 32 + lane;
         if (o == off0) {
-          upv[i] = 0.f;
-          dwv[i] = 0.f;
+          // the joint rule keeps the primary's residual
+          upv[i] = kJoint ? scv[i] : 0.f;
+          dwv[i] = kJoint ? scv[i] : 0.f;
           by_s[P * kOffsets + o] = static_cast<uint8_t>(content);
         } else if ((comp >> i) & 1u) {
           upv[i] = scv[i];
@@ -240,6 +386,7 @@ __device__ void run_slot(const Body& a, float* up_s, float* dw_s,
   }
 }
 
+template <bool kJoint>
 __global__ void __launch_bounds__(kThreads, 1) encode_body_kernel(Body a) {
   extern __shared__ float smem[];
   float* up_s = smem;
@@ -247,6 +394,8 @@ __global__ void __launch_bounds__(kThreads, 1) encode_body_kernel(Body a) {
   uint16_t* row_s = reinterpret_cast<uint16_t*>(dw_s + kCells);
   uint8_t* by_s = reinterpret_cast<uint8_t*>(row_s + kCells);
   uint8_t* tb_s = by_s + kCells;
+  // the joint rule's offset lists, kOffsets entries per warp
+  int2* list = reinterpret_cast<int2*>(tb_s + kCells);
   __shared__ float score_s[kPages];
   __shared__ int slot_page[kPages];
 
@@ -306,8 +455,9 @@ __global__ void __launch_bounds__(kThreads, 1) encode_body_kernel(Body a) {
     }
     __syncthreads();
     if (warp < a.k)
-      run_slot(a, up_s, dw_s, row_s, by_s, tb_s, movie, s, warp,
-               slot_page[warp], nv, seeded, skey, pad);
+      run_slot<kJoint>(a, up_s, dw_s, row_s, by_s, tb_s, movie, s, warp,
+                       slot_page[warp], nv, seeded, skey, pad,
+                       list + warp * kOffsets);
     __syncthreads();
   }
 
@@ -347,30 +497,43 @@ extern "C" {
 // n_lanes) and bytes_tgt (B, F, 2, 32, 256) int32, read at `frame`; table
 // (n_lanes * R, C) int16 with C a power of two; keys (B, 2) uint32 or NULL;
 // nvalid (S,) int32; ops (S, B, j, k, 6) uint8.  lane_e / lane_o: the
-// bank's lanes for even / odd offsets.  Returns a cudaError_t: the shared
-// memory attribute's, else the launch's.
+// bank's lanes for even / odd offsets.  joint: 0 for the default content
+// rule, 1 for joint content (C 128 or 256, table 8-byte aligned).  Returns
+// a cudaError_t: the shared memory attribute's, else the launch's.
 int iiv_encode_body(int32_t* up, int32_t* dw, int32_t* banks, int n_banks,
                     int bank, const int32_t* lanes_tgt,
                     const int32_t* bytes_tgt, int F, int frame, int n_lanes,
                     int lane_e, int lane_o, int R, const int16_t* table,
                     int C, const uint32_t* keys, const int32_t* nvalid,
                     int S, int s0, int Sc, int B, int k, int j, uint8_t* ops,
-                    void* stream) {
+                    int joint, void* stream) {
   if (B < 0 || k < 1 || k > kPages || j < 1 || C < 1 || (C & (C - 1)) != 0 ||
       bank < 0 || bank >= n_banks || frame < 0 || frame >= F || s0 < 0 ||
       Sc < 0 || s0 + Sc > S || R < 1 || R * n_lanes > 65536)
     return cudaErrorInvalidValue;
+  if (joint && ((C != 128 && C != 256) ||
+                (reinterpret_cast<uintptr_t>(table) & 7) != 0))
+    return cudaErrorInvalidValue;
   if (B == 0 || Sc == 0) return cudaSuccess;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      encode_body_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
   Body a{up,     dw,      banks,   lanes_tgt, bytes_tgt, table, keys,
          nvalid, ops,     B,       n_banks,   bank,      F,     frame,
          n_lanes, lane_e, lane_o,  R,         C,         s0,    Sc,
          k,      j};
-  encode_body_kernel<<<B, kThreads, kSmemBytes,
-                       static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (joint) {
+    const int bytes = kSmemBytes + kListBytes;
+    const cudaError_t attr = cudaFuncSetAttribute(
+        encode_body_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    encode_body_kernel<true><<<B, kThreads, bytes, st>>>(a);
+  } else {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        encode_body_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    encode_body_kernel<false><<<B, kThreads, kSmemBytes, st>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

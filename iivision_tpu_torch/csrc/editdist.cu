@@ -5,23 +5,56 @@
 // TPU kernel launched by pallas_distance), and computes the elementwise form
 // of iivision_tpu/ops/distance.py:dist_pixel_pairs.
 //
-// The recurrence (diag_dp, csrc/diag_dp.cuh) is the diagonal reduction of
-// the weighted Damerau-Levenshtein distance; every value is an integer
-// below 2^16, so int32 registers give exactly the float32 result of the TPU
-// kernel.  The TPU kernel built each step from 16-wide one-hot matmuls
-// because its only fast unit is the MXU; here each step is one
-// shared-memory cost lookup and a compare, so there are no one-hots at all.
+// The recurrence is the diagonal reduction of the weighted
+// Damerau-Levenshtein distance (csrc/diag_dp.cuh):
+//   D[0] = C[a0, b0]
+//   D[k] = min(D[k-1] + C[ak, bk], D[k-2] + 1 if a_k == b_{k-1} and
+//              a_{k-1} == b_k),  D[-1] = 0.
+// Every value is an integer below 2^16, so float32 or int32 registers give
+// exactly the float32 result of the TPU kernel.  The TPU kernel built each
+// step from 16-wide one-hot matmuls because its only fast unit is the MXU;
+// here a step is one shared-memory cost lookup and a few ALU operations.
 //
-// Two entries share the recurrence (diag_dp):
+// Two entries:
 //
-// - editdist_tile: all pairs of two code sets, one thread per (i, j) pair.
-//   A block stages its rows of A and B codes (as bytes, transposed so
-//   neighbouring threads read neighbouring bytes) and the cost matrix in
-//   shared memory, and writes uint16.  What bounds it: a full DHGR table is
-//   4 x 8192^2 uint16 = 512 MB of output stores, ~0.16 ms at 3.35 TB/s, and
-//   2.7e8 pairs x L steps of shared-memory lookups, compares and adds,
-//   which on this simple form take longer than the stores; consecutive
-//   threads write consecutive uint16s so every warp's stores coalesce.
+// - editdist_tile: all pairs of two code sets, (n_a, n_b) uint16.  What
+//   bounds it: the function's bound is its uint16 stores, 0.040 ms for a
+//   DHGR lane (8192^2) and 0.16 ms for an HGR lane (16384^2); its float32
+//   operations (an add, two compares and a min per step, on the n(n+1)/2
+//   pairs of the symmetric path) take 0.020 and 0.144 ms at the card's
+//   float32 peak.  But a step issues several instructions per pair (cost
+//   address, load, add, the transposition test, min), so instruction issue
+//   is what limits the kernel, and the design cuts the instructions of a
+//   step:
+//   * register blocking: a thread runs one A string against 8 consecutive
+//     B strings, whose codes it keeps in registers, packed one byte per
+//     code (code x 4, a byte offset into a cost row); the A string is the
+//     same across the warp, so its per-step work (the cost row, the swapped
+//     pair to test) is shared by the 8 pairs.  A step of one pair is then a
+//     byte extract, an address add, one shared-memory load of the cost, a
+//     float add, one byte permute and one compare for the transposition
+//     (b's bytes (b_{k-1}, b_k, b_k, b_k) against the A side's (a_k,
+//     a_{k-1}, a_{k-1}, a_{k-1}), so no masking), and a predicated add and
+//     min;
+//   * compile-time string lengths (10 for DHGR, 18 for HGR, the lengths
+//     of the LUTs: one instantiation each) so the loop over steps unrolls
+//     with no guard and every byte select is a constant; a caller with
+//     another length adds an instantiation (the elementwise dist_pairs
+//     takes any length up to 32);
+//   * coalesced stores: a lane's 8 distances are one 16-byte store, a
+//     warp's 32 lanes one 512-byte row segment; a block (8 warps) covers a
+//     256 x 256 tile, 32 rows per warp;
+//   * symmetry: when the wrapper passes the same code set twice and the
+//     cost matrix is symmetric (each block checks it in shared memory),
+//     D(a, b) = D(b, a) (the transposition test is symmetric too), so only
+//     tiles on or above the diagonal run, and an off-diagonal tile also
+//     writes its transpose: each 32-row strip goes through shared memory
+//     and out as 64-byte row segments.  The DP work of a LUT lane halves;
+//     the stores stay the whole matrix;
+//   * no spills: the B codes are staged once per block in shared memory
+//     and a row runs as two groups of 4 pairs, so a group's unrolled steps
+//     keep their codes and loads in registers (64 registers at L = 10, 80
+//     at L = 18).
 // - dist_pairs: elementwise pairs (..., L) -> int32, one thread per pair:
 //   the store-cost build and the quality scorer.  (The encoder's chunk-start
 //   diff runs the same recurrence inside chunk_start.cu.)
@@ -33,38 +66,166 @@
 
 namespace {
 
-constexpr int kMaxL = 32;   // longest string accepted (DHGR 10, HGR 18)
-constexpr int kTileN = 64;  // B strings (columns) per block: threadIdx.x
-constexpr int kTileM = 8;   // A strings (rows) per block: threadIdx.y
+constexpr int kMaxL = 32;       // longest string dist_pairs accepts
+constexpr int kPairs = 8;       // B strings per thread: one 16-byte store
+constexpr int kGroup = 4;       // of which one group's steps run unrolled
+constexpr int kWarps = 8;       // A rows per pass: one per warp
+constexpr int kTile = 32 * kPairs;        // 256 columns and rows per block
+constexpr int kPasses = kTile / kWarps;   // 32 rows per warp
+constexpr int kStrip = 32;      // rows per transposed write (4 passes)
 
-__global__ void editdist_tile_kernel(const int32_t* __restrict__ a, int n_a,
-                                     const int32_t* __restrict__ b, int n_b,
-                                     int L, const int32_t* __restrict__ sub,
-                                     uint16_t* __restrict__ out) {
-  __shared__ int sub_s[256];
-  __shared__ uint8_t a_s[kMaxL * kTileM];  // a_s[k * kTileM + row]
-  __shared__ uint8_t b_s[kMaxL * kTileN];  // b_s[k * kTileN + col]
-  const int tid = threadIdx.y * kTileN + threadIdx.x;
-  const int nthreads = kTileN * kTileM;
-  const int i0 = blockIdx.y * kTileM, j0 = blockIdx.x * kTileN;
-  for (int e = tid; e < 256; e += nthreads) sub_s[e] = sub[e];
-  // read the block's code rows in memory order, store them transposed
-  for (int e = tid; e < kTileN * L; e += nthreads) {
-    const int r = e / L, k = e - r * L, col = j0 + r;
-    b_s[k * kTileN + r] =
-        col < n_b ? static_cast<uint8_t>(b[(size_t)col * L + k] & 15) : 0;
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The block's 256 x 256 tile (tile row blockIdx.y, column blockIdx.x);
+// on the symmetric path (`same`: a == b and n_a == n_b, and a symmetric
+// cost matrix) only tiles with blockIdx.y <= blockIdx.x run, and those
+// above the diagonal also write their transpose.  L: the string length,
+// compiled in; costs are read from a float copy of sub in shared memory.
+template <int L>
+__global__ void __launch_bounds__(kWarps * 32, 2)
+editdist_tile_kernel(const int32_t* __restrict__ a, int n_a,
+                     const int32_t* __restrict__ b, int n_b,
+                     const int32_t* __restrict__ sub, int same,
+                     uint16_t* __restrict__ out) {
+  constexpr int kWords = (L + 3) / 4;  // 4 code bytes per word
+  __shared__ float sub_s[256];
+  __shared__ int a_s[kTile * L];  // the tile's A codes x 4, row-major
+  // the tile's B codes: string jc + p of lane l (jc = j0 + 8 l), word q at
+  // b_s[(p * kWords + q) * 32 + l], so a warp's loads are conflict-free
+  __shared__ uint32_t b_s[kPairs * kWords * 32];
+  __shared__ __align__(16) uint16_t strip_s[kStrip * kTile];
+  const int ti = blockIdx.y, tj = blockIdx.x;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int cost = sub[t];
+  sub_s[t] = static_cast<float>(cost);
+  // the symmetric path: one code set on both sides (the host's flag) and
+  // a symmetric cost matrix, checked here so that the host never waits
+  // for the card
+  const bool symmetric =
+      __syncthreads_and(cost == sub[(t & 15) * 16 + (t >> 4)]) && same;
+  if (symmetric && ti > tj) return;
+  const bool mirror = symmetric && ti < tj;
+  const int i0 = ti * kTile, j0 = tj * kTile;
+  const int rows = min(kTile, n_a - i0);
+  for (int e = t; e < rows * L; e += kWarps * 32) {
+    const int r = e / L;
+    a_s[r * L + (e - r * L)] = (a[(size_t)i0 * L + e] & 15) * 4;
   }
-  for (int e = tid; e < kTileM * L; e += nthreads) {
-    const int r = e / L, k = e - r * L, row = i0 + r;
-    a_s[k * kTileM + r] =
-        row < n_a ? static_cast<uint8_t>(a[(size_t)row * L + k] & 15) : 0;
+  // warp w packs string w of every lane; columns past n_b stay zero and
+  // are not stored
+  const int jc = j0 + kPairs * lane;
+  {
+    uint32_t w[kWords];
+#pragma unroll
+    for (int q = 0; q < kWords; ++q) w[q] = 0u;
+    if (jc + warp < n_b) {
+      const int32_t* bs = b + (size_t)(jc + warp) * L;
+#pragma unroll
+      for (int k = 0; k < L; ++k)
+        w[k >> 2] |= static_cast<uint32_t>((bs[k] & 15) * 4) << (8 * (k & 3));
+    }
+#pragma unroll
+    for (int q = 0; q < kWords; ++q)
+      b_s[(warp * kWords + q) * 32 + lane] = w[q];
   }
   __syncthreads();
-  const int i = i0 + threadIdx.y, j = j0 + threadIdx.x;
-  if (i < n_a && j < n_b) {
-    const int d = diag_dp(a_s + threadIdx.y, kTileM, b_s + threadIdx.x, kTileN,
-                          L, sub_s);
-    out[(size_t)i * n_b + j] = static_cast<uint16_t>(d);
+
+  const char* sub_b = reinterpret_cast<const char*>(sub_s);
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int rl = pass * kWarps + warp, i = i0 + rl;
+    if (i < n_a) {  // uniform over the warp
+      const int* ar = a_s + rl * L;
+      float d[kPairs];  // the row's distances
+#pragma unroll 1
+      for (int g = 0; g < kPairs; g += kGroup) {
+        // the group's B strings, in registers for the unrolled steps
+        uint32_t bw[kGroup][kWords];
+#pragma unroll
+        for (int p = 0; p < kGroup; ++p)
+#pragma unroll
+          for (int q = 0; q < kWords; ++q)
+            bw[p][q] = b_s[((g + p) * kWords + q) * 32 + lane];
+        float d1[kGroup], d2[kGroup];
+        int ak = ar[0];
+        const char* row = sub_b + ak * 16;  // sub_s[a][.] at a * 64 bytes
+#pragma unroll
+        for (int p = 0; p < kGroup; ++p) {
+          d1[p] = *reinterpret_cast<const float*>(
+              row + __byte_perm(bw[p][0], 0u, 0x4440u));
+          d2[p] = 0.f;
+        }
+#pragma unroll
+        for (int k = 1; k < L; ++k) {
+          const int ap = ak;
+          ak = ar[k];
+          row = sub_b + ak * 16;
+          // the transposition test, one compare: b's bytes (b_{k-1}, b_k,
+          // b_k, b_k) against (a_k, a_{k-1}, a_{k-1}, a_{k-1})
+          const uint32_t sw = static_cast<uint32_t>(ak) +
+                              static_cast<uint32_t>(ap) * 0x01010100u;
+          const uint32_t sel_b = 0x4440u | (k & 3);
+          const uint32_t sel_pair = (4u + (k & 3)) * 0x1110u | ((k - 1) & 3);
+#pragma unroll
+          for (int p = 0; p < kGroup; ++p) {
+            const uint32_t bk = __byte_perm(bw[p][k >> 2], 0u, sel_b);
+            float dk = d1[p] + *reinterpret_cast<const float*>(row + bk);
+            const uint32_t pr =
+                __byte_perm(bw[p][(k - 1) >> 2], bw[p][k >> 2], sel_pair);
+            if (pr == sw) dk = fminf(dk, d2[p] + 1.f);
+            d2[p] = d1[p];
+            d1[p] = dk;
+          }
+        }
+#pragma unroll
+        for (int p = 0; p < kGroup; ++p) d[g + p] = d1[p];
+      }
+      uint32_t h[kPairs / 2];
+#pragma unroll
+      for (int q = 0; q < kPairs / 2; ++q)
+        h[q] = static_cast<uint32_t>(__float2int_rn(d[2 * q])) |
+               (static_cast<uint32_t>(__float2int_rn(d[2 * q + 1])) << 16);
+      const uint4 v = make_uint4(h[0], h[1], h[2], h[3]);
+      uint16_t* o = out + (size_t)i * n_b + jc;
+      if (jc + kPairs <= n_b && aligned16(o)) {
+        *reinterpret_cast<uint4*>(o) = v;
+      } else {
+#pragma unroll
+        for (int p = 0; p < kPairs; ++p)
+          if (jc + p < n_b)
+            o[p] = static_cast<uint16_t>(__float2int_rn(d[p]));
+      }
+      if (mirror)
+        *reinterpret_cast<uint4*>(strip_s + (rl % kStrip) * kTile +
+                                  kPairs * lane) = v;
+    }
+    if (mirror && (pass + 1) % (kStrip / kWarps) == 0) {
+      // the strip's rows is .. is+31, transposed: thread t writes row
+      // j0 + t of out at columns is .. is+31 (n_a == n_b here)
+      __syncthreads();
+      const int jt = j0 + t;
+      const int is = i0 + (pass + 1) * kWarps - kStrip;
+      if (jt < n_a && is < n_a) {
+        uint16_t* o = out + (size_t)jt * n_a + is;
+        if (is + kStrip <= n_a && aligned16(o)) {
+          uint32_t w[kStrip / 2];
+#pragma unroll
+          for (int q = 0; q < kStrip / 2; ++q)
+            w[q] = static_cast<uint32_t>(strip_s[(2 * q) * kTile + t]) |
+                   (static_cast<uint32_t>(strip_s[(2 * q + 1) * kTile + t])
+                    << 16);
+#pragma unroll
+          for (int q = 0; q < kStrip / 8; ++q)
+            reinterpret_cast<uint4*>(o)[q] =
+                make_uint4(w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]);
+        } else {
+          for (int r = 0; r < kStrip && is + r < n_a; ++r)
+            o[r] = strip_s[r * kTile + t];
+        }
+      }
+      __syncthreads();
+    }
   }
 }
 
@@ -83,19 +244,26 @@ __global__ void dist_pairs_kernel(const int32_t* __restrict__ a,
 
 extern "C" {
 
-// out[i, j] = D(a[i], b[j]) for a (n_a, L), b (n_b, L) int32 codes; out is
-// (n_a, n_b) uint16, row-major.  sub: (16, 16) int32.  Returns the launch's
+// out[i, j] = D(a[i], b[j]) for a (n_a, L), b (n_b, L) int32 codes, L 10
+// or 18; out is (n_a, n_b) uint16, row-major.  sub: (16, 16) int32.
+// same: 1 only when a and b are the same codes (n_a == n_b); the kernel
+// then takes the symmetric path if sub is symmetric.  Returns the launch's
 // cudaError_t.
 int iiv_editdist_tile(const int32_t* a, int n_a, const int32_t* b, int n_b,
-                      int L, const int32_t* sub, uint16_t* out,
+                      int L, const int32_t* sub, int same, uint16_t* out,
                       void* stream) {
-  if (L < 1 || L > kMaxL || n_a < 0 || n_b < 0) return cudaErrorInvalidValue;
+  if ((L != 10 && L != 18) || n_a < 0 || n_b < 0 || (same && n_a != n_b))
+    return cudaErrorInvalidValue;
   if (n_a == 0 || n_b == 0) return cudaSuccess;
-  const dim3 block(kTileN, kTileM);
-  const dim3 grid((n_b + kTileN - 1) / kTileN, (n_a + kTileM - 1) / kTileM);
+  const dim3 grid((n_b + kTile - 1) / kTile, (n_a + kTile - 1) / kTile);
   if (grid.y > 65535) return cudaErrorInvalidValue;
-  editdist_tile_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, n_a, b, n_b, L, sub, out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (L == 10)
+    editdist_tile_kernel<10><<<grid, kWarps * 32, 0, s>>>(
+        a, n_a, b, n_b, sub, same, out);
+  else
+    editdist_tile_kernel<18><<<grid, kWarps * 32, 0, s>>>(
+        a, n_a, b, n_b, sub, same, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,17 +8,18 @@ with one call per body:
 
 - at a chunk start, the diff of the active bank against the frame's target
   and the priority update (`ops/chunk_start`: one kernel launch for all B
-  movies on a card; the yiq model's window sums stay torch ops);
+  movies on a card, for every colour model);
 - the body's steps (`ops/body`): per step the k busiest pages of each movie
   (a stable top-k: ties go to the lower page, as `lax.top_k` orders them)
   and j sequential sub-ops on each, with the nonces drawn inside - one
-  kernel launch per body on a card.  Joint content (`--joint_content`)
-  runs the per-step torch loop with kernel B's joint instantiation.
+  kernel launch per body on a card, the body kernel's joint instantiation
+  for joint content (`--joint_content`).
 
-A CPU tensor runs the plain torch forms.  Output is byte-identical to the
-JAX package for the same seeds: the nonces are `jax.random`'s bits, the
-float32 expressions are the same, and the dtype boundaries are kept (state
-is int32 between bodies, float32 within one).  The solo encode is the
+A CPU tensor runs the plain torch forms inside the same wrappers.  Output
+is byte-identical to the JAX package for the same seeds: the nonces are
+`jax.random`'s bits, the float32 expressions are the same, and the dtype
+boundaries are kept (state is int32 between bodies, float32 within
+one).  The solo encode is the
 B = 1 call.
 
 What the JAX package needed only on the TPU is left out: the cost slab
@@ -34,7 +35,7 @@ from typing import Optional
 import torch
 
 from iivision_tpu_torch import screen
-from iivision_tpu_torch.ops import body, chunk_start, subop
+from iivision_tpu_torch.ops import body, chunk_start
 from iivision_tpu_torch.ops import random as trandom
 from iivision_tpu_torch.ops.chunk_start import n_banks
 from iivision_tpu_torch.plan import (  # noqa: F401
@@ -113,19 +114,10 @@ def encode_movies(dist, lanes_tgt_b, bytes_tgt_b, plan: MoviePlan,
     for b0 in range(0, S, Sc):
         frame, bank = int(sf[b0]), int(sb[b0])
         if sr[b0]:
-            if dist.sub.dim() == 4:  # yiq: the torch window sums
-                chunk_start.chunk_start_plain(banks, lanes_tgt_b, frame,
-                                              bank, dist.sub, up, dw, mode)
-            else:
-                chunk_start.chunk_start(banks, lanes_tgt_b, frame, bank,
-                                        dist.sub, up, dw, mode)
-        if joint:
-            body.encode_body_plain(up, dw, banks, lanes_tgt_b, bytes_tgt_b,
-                                   frame, bank, table, keys, nvalid, b0, Sc,
-                                   ops, mode, chain=subop.sub_op_chain_joint)
-        else:
-            body.encode_body(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame,
-                             bank, table, keys, nvalid, b0, Sc, ops, mode)
+            chunk_start.chunk_start(banks, lanes_tgt_b, frame, bank,
+                                    dist.sub, up, dw, mode)
+        body.encode_body(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame,
+                         bank, table, keys, nvalid, b0, Sc, ops, mode, joint)
     ops = ops.transpose(0, 1).reshape(B, S, k * j, OP_FIELDS)
     # HGR's one bank is both main and aux, as the JAX encoder returns it
     return ops, banks[:, 0], banks[:, -1]

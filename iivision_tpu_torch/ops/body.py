@@ -1,15 +1,17 @@
 """One chunk body of the encoder for B movies (counterpart of the JAX
 encoder's body scan, `step_body` and `sub_op`, iivision_tpu/encoder.py:
-567-759): steps s0 .. s0+Sc-1 of the plan on the active bank of one frame.
+567-759): steps s0 .. s0+Sc-1 of the plan on the active bank of one frame,
+with the default content rule or the joint one (`--joint_content`).
 
 - `encode_body_plain`: the per-step torch loop - page maxima (`amax`), the
   nonce add, a stable sort for the top k, `index_select` of the pages'
-  rows, the sub-op chain (`subop.sub_op_chain_plain`, or a given chain
-  such as kernel B's joint wrapper), `index_copy_` back, with the nonces
-  of the body drawn by `ops/random.step_nonces`;
-- `encode_body`: the default content rule in one launch of csrc/body.cu
-  on a CUDA tensor (nonces drawn inside the kernel), `encode_body_plain`
-  on a CPU tensor.  It counts its launches in `encode_body.launches`;
+  rows, the plain sub-op chain (`subop.sub_op_chain_plain`, default or
+  joint), `index_copy_` back, with the nonces of the body drawn by
+  `ops/random.step_nonces`;
+- `encode_body`: one launch of csrc/body.cu on a CUDA tensor (nonces drawn
+  inside the kernel; `joint` picks the kernel's joint instantiation),
+  `encode_body_plain` on a CPU tensor.  Each rule counts its launches:
+  `encode_body.launches` and `encode_body.joint_launches`;
 - `threefry_uniform`: the kernel's threefry for tests, writing
   `step_nonces`' layout (`threefry_uniform.launches` counts it);
 - `nonce_plain`: one nonce from Python integers, the per-element form of
@@ -56,14 +58,9 @@ def _key_pair(keys: torch.Tensor) -> tuple:
 
 def encode_body_plain(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame: int,
                       bank: int, table, keys, nvalid, s0: int, Sc: int, ops,
-                      mode: VideoMode, chain=None) -> None:
-    """The body as the per-step torch loop (see the module docstring).
-    chain: the sub-op chain with `subop.sub_op_chain`'s signature; None
-    is the plain default-content chain."""
-    if chain is None:
-        def chain(rows, sc_rows, table, nonce, pages, nvalid, pad, out):
-            subop.sub_op_chain_plain(rows, sc_rows, table, nonce, pages,
-                                     nvalid, pad, out)
+                      mode: VideoMode, joint: bool = False) -> None:
+    """The body as the per-step torch loop (see the module docstring);
+    joint: joint content selection."""
     dev = up.device
     B = up.shape[0]
     j, k = ops.shape[2], ops.shape[3]
@@ -95,9 +92,10 @@ def encode_body_plain(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame: int,
                            stable=True).indices[:, :k].contiguous()
         flat = (pages + movie_base).reshape(-1)
         rows = st.index_select(0, flat).reshape(B, k, 4, 256)
-        chain(rows, sc_rows.index_select(0, flat).reshape(B, k, 256),
-              table, None if keys is None else nonce_o[i], pages, nv[i],
-              pad, ops[s])
+        subop.sub_op_chain_plain(
+            rows, sc_rows.index_select(0, flat).reshape(B, k, 256), table,
+            None if keys is None else nonce_o[i], pages, nv[i], pad, ops[s],
+            joint)
         st.index_copy_(0, flat, rows.reshape(B * k, 4, 256))
     # truncate back to int32 at the body's end
     st = st.reshape(B, 32, 4, 256)
@@ -108,12 +106,12 @@ def encode_body_plain(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame: int,
 
 def encode_body(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame: int,
                 bank: int, table, keys, nvalid, s0: int, Sc: int, ops,
-                mode: VideoMode) -> None:
-    """The body with the default content rule: one launch of the body
-    kernel on a CUDA tensor, `encode_body_plain` on a CPU tensor."""
+                mode: VideoMode, joint: bool = False) -> None:
+    """The body: one launch of the body kernel on a CUDA tensor (its joint
+    instantiation if `joint`), `encode_body_plain` on a CPU tensor."""
     if up.device.type == "cpu":
         encode_body_plain(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame,
-                          bank, table, keys, nvalid, s0, Sc, ops, mode)
+                          bank, table, keys, nvalid, s0, Sc, ops, mode, joint)
         return
     if up.device.type != "cuda":
         raise ValueError("no kernel for device %s" % up.device)
@@ -140,6 +138,10 @@ def encode_body(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame: int,
                 "body kernel argument: want %s %s contiguous on %s, got %s "
                 "%s on %s" % (dtype, shape, up.device, t.dtype,
                               tuple(t.shape), t.device))
+    if joint and (C not in (128, 256) or table.data_ptr() % 8):
+        raise ValueError("the joint body kernel takes C = 128 or 256 "
+                         "contents and an 8-byte aligned table; got C = %d "
+                         "at %#x" % (C, table.data_ptr()))
     le, lo = bank_lanes(mode, bank)
     _build.launch(
         "iiv_encode_body", ctypes.c_void_p(up.data_ptr()),
@@ -149,12 +151,16 @@ def encode_body(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame: int,
         le, lo, table.shape[0] // n_lanes, ctypes.c_void_p(table.data_ptr()),
         C, ctypes.c_void_p(None if keys is None else keys.data_ptr()),
         ctypes.c_void_p(nvalid.data_ptr()), S, int(s0), int(Sc), B, k, j,
-        ctypes.c_void_p(ops.data_ptr()),
+        ctypes.c_void_p(ops.data_ptr()), int(joint),
         ctypes.c_void_p(_build.stream_ptr(up.device)))
-    encode_body.launches += 1
+    if joint:
+        encode_body.joint_launches += 1
+    else:
+        encode_body.launches += 1
 
 
 encode_body.launches = 0
+encode_body.joint_launches = 0
 
 
 def threefry_uniform(keys: torch.Tensor, steps: torch.Tensor, k: int,

@@ -6,12 +6,13 @@ frame's target, zero at the screen holes, then the priority update
 
 - `chunk_start_plain`: the torch form - masked lanes of both banks,
   `lane_pixels` for the bank's two lanes, the elementwise diagonal DP
-  (`distance.dist_pixel_pairs_plain`, torch ops on any device), interleave,
-  holes, update - and the yiq model's window sums (a 4-D `sub`), which only
-  this form runs;
-- `chunk_start`: the window and mono bases ((16, 16) `sub`) in one launch
-  of csrc/chunk_start.cu on a CUDA tensor, `chunk_start_plain` on a CPU
-  tensor.  It counts its launches in `chunk_start.launches`.
+  (`distance.dist_pixel_pairs_plain`, torch ops on any device), or the yiq
+  model's window sums for a 4-D `sub`, then interleave, holes, update;
+- `chunk_start`: one launch of csrc/chunk_start.cu on a CUDA tensor, for
+  the window and mono bases ((16, 16) `sub`) and the yiq costs
+  ((n_lanes, L, 128, 128) `sub`, the kernel's yiq instantiation);
+  `chunk_start_plain` on a CPU tensor.  It counts its launches in
+  `chunk_start.launches` and, for yiq, `chunk_start.yiq_launches`.
 
 State layout: banks, up, dw (B, n_banks, 32, 256) int32; lanes_tgt_b
 (B, F, 32, 128, n_lanes) int32, read at `frame`.
@@ -87,9 +88,9 @@ def chunk_start_plain(banks, lanes_tgt_b, frame: int, bank: int, sub,
 
 def chunk_start(banks, lanes_tgt_b, frame: int, bank: int, sub, up, dw,
                 mode: VideoMode) -> None:
-    """The chunk start for a (16, 16) cost basis: one launch of the
-    chunk-start kernel on a CUDA tensor, `chunk_start_plain` on a CPU
-    tensor."""
+    """The chunk start: one launch of the chunk-start kernel on a CUDA
+    tensor (its yiq instantiation for a 4-D `sub`), `chunk_start_plain` on
+    a CPU tensor."""
     nb = n_banks(mode)
     if banks.device.type == "cpu":
         chunk_start_plain(banks, lanes_tgt_b, frame, bank, sub, up, dw,
@@ -99,9 +100,11 @@ def chunk_start(banks, lanes_tgt_b, frame: int, bank: int, sub, up, dw,
         raise ValueError("no kernel for device %s" % banks.device)
     B, F = lanes_tgt_b.shape[:2]
     n_lanes = screen.spec_for_mode(mode).N_LANES
+    yiq_model = sub.dim() == 4
     want = [(banks, (B, nb, 32, 256)), (up, (B, nb, 32, 256)),
             (dw, (B, nb, 32, 256)), (lanes_tgt_b, (B, F, 32, 128, n_lanes)),
-            (sub, (16, 16))]
+            (sub, (n_lanes, yiq.n_pixels(mode), 128, 128) if yiq_model
+             else (16, 16))]
     for t, shape in want:
         if t.device != banks.device or t.dtype != torch.int32 \
                 or not t.is_contiguous() or tuple(t.shape) != shape:
@@ -112,11 +115,15 @@ def chunk_start(banks, lanes_tgt_b, frame: int, bank: int, sub, up, dw,
     _build.launch(
         "iiv_chunk_start", ctypes.c_void_p(banks.data_ptr()),
         ctypes.c_void_p(lanes_tgt_b.data_ptr()), B, F, int(frame),
-        ctypes.c_void_p(sub.data_ptr()), int(mode == VideoMode.DHGR),
-        int(bank), ctypes.c_void_p(up.data_ptr()),
+        ctypes.c_void_p(sub.data_ptr()), int(yiq_model),
+        int(mode == VideoMode.DHGR), int(bank), ctypes.c_void_p(up.data_ptr()),
         ctypes.c_void_p(dw.data_ptr()),
         ctypes.c_void_p(_build.stream_ptr(banks.device)))
-    chunk_start.launches += 1
+    if yiq_model:
+        chunk_start.yiq_launches += 1
+    else:
+        chunk_start.launches += 1
 
 
 chunk_start.launches = 0
+chunk_start.yiq_launches = 0

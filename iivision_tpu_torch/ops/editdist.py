@@ -7,9 +7,10 @@ its proof, are in the JAX module's docstring.  This module has:
 - `dp_distance_tile`: the plain torch form for all pairs of a tile,
   written as the recurrence itself (a cost lookup per position);
 - `pair_distance`: all pairs through kernel A's `editdist_tile` entry (the
-  counterpart of the Pallas `pallas_distance`);
+  counterpart of the Pallas `pallas_distance`); `same_codes` tells the
+  kernel that both sides are one code set (its symmetric path);
 - `dist_pairs_elementwise`: elementwise pairs through kernel A's
-  `dist_pairs` entry (the encoder's chunk-start diff);
+  `dist_pairs` entry (the store-cost build and the quality scorer);
 - `edit_distance_matrix` and `build_tables`: whole-lane LUTs.
 
 A wrapper runs its plain version only for CPU tensors.  For CUDA tensors
@@ -35,7 +36,8 @@ from iivision_tpu_torch.video_mode import VideoMode
 
 TRANSPOSE_COST = 1
 INDEL_COST = 100000
-MAX_L = 32  # longest code string kernel A accepts
+MAX_L = 32  # longest code string kernel A's elementwise entry accepts
+TILE_L = (10, 18)  # code lengths its all-pairs tile is compiled for
 
 
 @functools.lru_cache(None)
@@ -155,13 +157,35 @@ def _sub_i32(sub: torch.Tensor, device) -> torch.Tensor:
     return sub.to(device=device, dtype=torch.int32).contiguous()
 
 
+def same_codes(codes_a: torch.Tensor, codes_b: torch.Tensor) -> bool:
+    """Whether both sides are one code set: one tensor, or views of one
+    storage with equal shape and strides.  Kernel A then takes its
+    symmetric path if the cost matrix is symmetric too (the kernel checks
+    that itself, so no launch waits for the card): D(a, b) = D(b, a), the
+    transposition test being symmetric by itself, so it computes only the
+    tiles on or above the diagonal and writes each off-diagonal one
+    twice."""
+    return codes_a is codes_b or (
+        codes_a.device == codes_b.device
+        and codes_a.data_ptr() == codes_b.data_ptr()
+        and codes_a.shape == codes_b.shape
+        and codes_a.stride() == codes_b.stride())
+
+
 def pair_distance(codes_a: torch.Tensor, codes_b: torch.Tensor,
                   sub: torch.Tensor, out=None) -> torch.Tensor:
     """(n_a, n_b) uint16 distances for all pairs (kernel A, all pairs).
 
     codes_a: (n_a, L), codes_b: (n_b, L) int32 codes in 0..15; sub: (16, 16)
     integer costs; out: an optional contiguous (n_a, n_b) uint16 tensor to
-    write.  CPU tensors run `dp_distance_tile`."""
+    write.  CPU tensors run `dp_distance_tile`.  Passing one code set twice
+    (`same_codes`) under a symmetric `sub` halves the card's DP work.
+
+    On the card L must be one of TILE_L, the LUT lengths (DHGR 10, HGR 18):
+    the tile is compiled for each length so that its steps unroll with
+    every code in registers.  Another length needs an instantiation of its
+    own in csrc/editdist.cu; `dist_pairs_elementwise` takes any L up to
+    MAX_L."""
     if codes_a.dim() != 2 or codes_b.dim() != 2 \
             or codes_a.shape[1] != codes_b.shape[1]:
         raise ValueError("code shapes %s and %s do not pair" % (
@@ -181,14 +205,15 @@ def pair_distance(codes_a: torch.Tensor, codes_b: torch.Tensor,
     if codes_a.device.type != "cuda":
         raise ValueError("no kernel for device %s" % codes_a.device)
     _check_codes(codes_a, codes_b)
-    if not 1 <= L <= MAX_L:
-        raise ValueError("code strings of length %d (kernel takes 1..%d)"
-                         % (L, MAX_L))
+    if L not in TILE_L:
+        raise ValueError("code strings of length %d (the all-pairs tile "
+                         "takes the LUT lengths %s)" % (L, TILE_L))
     sub_d = _sub_i32(sub, codes_a.device)
     _build.launch("iiv_editdist_tile",
                   ctypes.c_void_p(codes_a.data_ptr()), n_a,
                   ctypes.c_void_p(codes_b.data_ptr()), n_b, L,
                   ctypes.c_void_p(sub_d.data_ptr()),
+                  int(same_codes(codes_a, codes_b)),
                   ctypes.c_void_p(out.data_ptr()),
                   ctypes.c_void_p(_build.stream_ptr(codes_a.device)))
     pair_distance.launches += 1

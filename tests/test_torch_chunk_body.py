@@ -1,10 +1,15 @@
 """The encoder's chunk-start and body pieces in iivision_tpu_torch on the
 CPU: the per-offset lane indexing the chunk-start kernel uses, against the
-vectorised masked lanes; the plain chunk start against a diff built from
-the JAX package's screen and distance modules; the body kernel's nonce
-indexing against jax.random; the key words; foreign enums refused by each
-public entry point; and the new wrappers refusing devices without a
-kernel.  Everything is exact (integer or bit-equal)."""
+vectorised masked lanes; the plain chunk start (window, mono and yiq
+models) against a diff built from the JAX package's screen and distance
+modules; the yiq instantiation's per-offset window indexing against the
+plain chunk start; the body kernel's nonce indexing against jax.random;
+the key words; foreign enums refused by each public entry point; the new
+wrappers refusing devices without a kernel; and encoder.py calling only
+the kernel wrappers.  Everything is exact (integer or bit-equal)."""
+
+import ast
+import os
 
 import jax
 import jax.numpy as jnp
@@ -19,7 +24,7 @@ from iivision_tpu.palettes import Palette as JPalette
 from iivision_tpu.video_mode import VideoMode as JVideoMode
 from iivision_tpu_torch import encoder, quality, screen
 from iivision_tpu_torch.movie import Movie
-from iivision_tpu_torch.ops import body, chunk_start, distance
+from iivision_tpu_torch.ops import body, chunk_start, distance, yiq
 from iivision_tpu_torch.ops import random as trandom
 from iivision_tpu_torch.palettes import Palette
 from iivision_tpu_torch.parallel import mesh
@@ -64,7 +69,8 @@ def test_masked_lane_at_matches_vectorised_lanes(mode):
 @pytest.mark.parametrize("mode,bank,model", [
     (VideoMode.DHGR, 0, "window"), (VideoMode.DHGR, 1, "window"),
     (VideoMode.DHGR, 1, "mono"), (VideoMode.HGR, 0, "window"),
-    (VideoMode.HGR, 0, "mono")])
+    (VideoMode.HGR, 0, "mono"), (VideoMode.DHGR, 0, "yiq"),
+    (VideoMode.DHGR, 1, "yiq"), (VideoMode.HGR, 0, "yiq")])
 def test_chunk_start_plain_matches_jax_diff(mode, bank, model):
     """B = 2 movies: random modelled banks, targets and priorities.  The
     reference is the JAX encoder's do_recompute written from
@@ -107,6 +113,71 @@ def test_chunk_start_plain_matches_jax_diff(mode, bank, model):
         assert up.dtype == dw.dtype == torch.int32
         assert np.array_equal(up.numpy(), want_up)
         assert np.array_equal(dw.numpy(), want_dw)
+
+
+def yiq_diff_at(banks, lanes_tgt, frame: int, bank: int, sub, mode):
+    """The yiq chunk-start diff per page offset, as the kernel's yiq
+    instantiation indexes it: offset o takes lane bank_lanes(bank)[o & 1]
+    at column o >> 1, derives the modelled lane from the bank bytes around
+    it (screen.masked_lane_at) and reads the target lane; both expand to
+    dots (DHGR: the lane itself; HGR: hgr_to_dots with the lane as byte
+    offset); window j is (dots >> j) & 0x7F, and d = sum_j sub[lane, j,
+    wa_j, wb_j], zero where o & 127 >= 120.  Returns (B, 32, 256) int32."""
+    main = banks[:, 0]
+    aux = banks[:, 1] if mode == VideoMode.DHGR else None
+    L = yiq.n_pixels(mode)
+    col = torch.arange(128)
+    d = torch.zeros(banks.shape[0], 32, 256, dtype=torch.int32)
+    for parity, lane in enumerate(chunk_start.bank_lanes(mode, bank)):
+        cur = screen.masked_lane_at(main, aux, mode, lane, col)
+        tgt = lanes_tgt[:, frame, :, :, lane]
+        if mode == VideoMode.HGR:
+            cur, tgt = (screen.hgr_to_dots(x, lane) for x in (cur, tgt))
+        acc = torch.zeros_like(cur)
+        for j in range(L):
+            acc += sub[lane, j, (cur >> j) & 0x7F, (tgt >> j) & 0x7F]
+        d[..., parity::2] = acc
+    d[..., (torch.arange(256) & 127) >= 120] = 0
+    return d
+
+
+@pytest.mark.parametrize("mode,bank", [(VideoMode.DHGR, 0),
+                                       (VideoMode.DHGR, 1),
+                                       (VideoMode.HGR, 0)])
+def test_yiq_window_indexing_matches_plain(mode, bank):
+    """yiq_diff_at (the yiq kernel's per-offset indexing) equals the dw
+    that chunk_start_plain writes for the yiq model, B = 2 movies."""
+    B, F, frame = 2, 3, 2
+    banks = random_banks(B, mode, 5)
+    tgt = random_banks(B * F, mode, 6).reshape((B, F) + banks.shape[1:])
+    lanes_tgt = chunk_start.masked_lanes(tgt, mode).contiguous()
+    dist = distance.ComputedDistance(mode, Palette.NTSC, "yiq", device="cpu")
+    assert dist.sub.shape == (screen.spec_for_mode(mode).N_LANES,
+                              yiq.n_pixels(mode), 128, 128)
+    up = torch.zeros(banks.shape, dtype=torch.int32)
+    dw = torch.zeros(banks.shape, dtype=torch.int32)
+    chunk_start.chunk_start_plain(banks, lanes_tgt, frame, bank, dist.sub,
+                                  up, dw, mode)
+    got = yiq_diff_at(banks, lanes_tgt, frame, bank, dist.sub, mode)
+    assert got.max() > 0 and (got == 0).any()
+    assert torch.equal(got, dw[:, bank])
+
+
+def test_encoder_calls_only_kernel_wrappers():
+    """encoder.py calls no `*_plain` function: every chunk start and body
+    goes through the wrappers that launch a kernel on a card (the CPU form
+    runs inside them)."""
+    path = os.path.join(os.path.dirname(encoder.__file__), "encoder.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    called = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            fn = node.func
+            called.add(fn.attr if isinstance(fn, ast.Attribute)
+                       else getattr(fn, "id", ""))
+    assert {"chunk_start", "encode_body"} <= called
+    assert not [n for n in called if n.endswith("_plain")], called
 
 
 @pytest.mark.parametrize("seed", [0, 7])

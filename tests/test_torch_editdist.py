@@ -1,6 +1,8 @@
 """iivision_tpu_torch edit-distance tiles against the JAX package's Pallas
 kernel (interpret mode), its XLA tile and the scalar Damerau-Levenshtein
-oracle: exact equality."""
+oracle, and the host side of kernel A's all-pairs tile: the same-codes
+check and the symmetric cost matrices, a LUT lane's one-code-set call, and
+the kernel's byte-packed step per element.  Exact equality."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -116,3 +118,83 @@ def test_make_tables_store_cost_writes_the_shipped_table(tmp_path,
     got = np.load(path)["cost"]
     assert got.dtype == want.dtype == np.uint16
     assert np.array_equal(got, want)
+
+
+def test_same_codes_and_symmetric_costs(sub):
+    """The symmetric path needs one code set on both sides (a tensor or a
+    view of the same storage with equal shape and strides: `same_codes`)
+    and a symmetric cost matrix, which the kernel checks; both palettes'
+    matrices are symmetric, and so are the distances they give."""
+    codes = torch.as_tensor(
+        jed.lane_pixel_codes(JVideoMode.DHGR, 0)[:40].astype(np.int32))
+    assert editdist.same_codes(codes, codes)
+    assert editdist.same_codes(codes, codes[:])
+    assert not editdist.same_codes(codes, codes.clone())
+    assert not editdist.same_codes(codes, codes[:39])
+    assert not editdist.same_codes(codes[1:], codes[:39])
+    for palette in (Palette.NTSC, Palette.IIGS):
+        m = editdist.cost_matrix(palette, "cpu")
+        assert torch.equal(m, m.T), palette
+        d = editdist.dp_distance_tile(codes, codes, m)
+        assert torch.equal(d, d.T), palette
+
+
+def packed_step_distance(a, b, sub) -> int:
+    """One pair as the all-pairs tile computes it: b's codes as bytes
+    (code x 4) packed four to a 32-bit word; step k reads byte k of b as
+    the offset into the cost row of a_k, and tests the transposition as
+    one 32-bit compare of b's bytes (b_{k-1}, b_k, b_k, b_k) with
+    a_k x 4 + a_{k-1} x 4 x 0x01010100; float32 sums."""
+    words = [0] * ((len(b) + 3) // 4)
+    for k, c in enumerate(b):
+        words[k >> 2] |= (int(c) & 15) * 4 << (8 * (k & 3))
+
+    def byte(k):
+        return (words[k >> 2] >> (8 * (k & 3))) & 0xFF
+
+    cost = np.asarray(sub, np.float32).reshape(-1)  # row a at a * 16
+    ak = (int(a[0]) & 15) * 4
+    d1, d2 = cost[ak * 4 + byte(0) // 4], np.float32(0)
+    for k in range(1, len(a)):
+        ap, ak = ak, (int(a[k]) & 15) * 4
+        dk = np.float32(d1 + cost[ak * 4 + byte(k) // 4])
+        if byte(k - 1) | byte(k) * 0x01010100 == ak + ap * 0x01010100:
+            dk = min(dk, np.float32(d2 + 1))
+        d2, d1 = d1, dk
+    return int(d1)
+
+
+@pytest.mark.parametrize("palette", [JPalette.NTSC, JPalette.IIGS])
+@pytest.mark.parametrize("L", [10, 18])
+def test_packed_step_matches_jax(L, palette):
+    """The tile's byte-packed step equals the JAX package's scalar
+    Damerau-Levenshtein oracle on random pairs, half of them one adjacent
+    swap apart (the transposition branch)."""
+    sub = jed.substitute_matrix(palette)
+    rng = np.random.RandomState(L)
+    pa = rng.randint(0, 16, (120, L))
+    pb = rng.randint(0, 16, (120, L))
+    for r in range(0, 120, 2):
+        i = rng.randint(0, L - 1)
+        pb[r] = pa[r]
+        pb[r, i], pb[r, i + 1] = pa[r, i + 1], pa[r, i]
+    for a, b in zip(pa, pb):
+        want = jed.dam_lev_scalar(list(a), list(b), sub)
+        assert packed_step_distance(a, b, sub) == want, (a, b)
+
+
+@pytest.mark.parametrize("mode", [VideoMode.DHGR, VideoMode.HGR])
+@pytest.mark.parametrize("palette", [Palette.NTSC, Palette.IIGS])
+def test_pair_distance_one_code_set_matches_jax(mode, palette):
+    """A LUT lane's call, one code set on both sides under the port's cost
+    matrix (the kernel's symmetric path on the card), equals the JAX
+    package's XLA tile under its own matrix."""
+    codes = editdist.lane_codes(mode, 1, "cpu")[100:164].contiguous()
+    got = editdist.pair_distance(codes, codes,
+                                 editdist.cost_matrix(palette, "cpu"))
+    jsub = jed.substitute_matrix(JPalette[palette.name])
+    want = jed.dp_distance_tile(jnp.asarray(codes.numpy()),
+                                jnp.asarray(codes.numpy()),
+                                jnp.asarray(jsub.astype(np.float32)))
+    assert got.dtype == torch.uint16
+    assert np.array_equal(got.numpy(), np.asarray(want).astype(np.uint16))
