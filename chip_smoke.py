@@ -8,7 +8,10 @@ the card, bit-equal:
 - kernel A's all-pairs tile: DHGR 1024 x 8192 and HGR 512 x 2048 with
   a != b, ragged sizes, the symmetric path (one code set twice) on a
   ragged set in full and on whole DHGR and HGR (16384^2) lanes on sampled
-  rows; kernel A's elementwise entry at L = 10 and 18;
+  rows; kernel A's lane-distance entry (every DHGR and HGR lane, window
+  and mono bases: every masked value against a fixed one, random pairs,
+  pairs that transpose neighbouring codes, strided and broadcast views) and its
+  codes entry at L = 10 and 18;
 - the chunk-start kernel: DHGR (both banks) and HGR, window, mono and yiq
   bases, B = 1 and 32;
 - the body kernel's threefry (B = 32 keys, steps up to 2^20, four
@@ -24,7 +27,7 @@ the card, bit-equal:
   kernel B's joint variant (DHGR and HGR at k=16 j=4, and a crafted page
   where a non-target content wins) - the card-side per-step reference,
   which no path launches - and kernel C (the sub-op microbenchmark at
-  B=32, K=16, T=100).
+  512 and 509 rows, T = 0, 1 and 100, with crafted rows).
 Each kernel's device time is the mean of many back-to-back launches
 between one event pair, queued behind a sleep so that the host's wrapper
 time stays outside the pair.
@@ -105,9 +108,12 @@ KERNELS = {
     "editdist_tile": ("editdist", "pair_distance", "launches",
                       "iivision_tpu_torch/csrc/editdist.cu",
                       "iivision_tpu/ops/editdist.py:232"),
+    "lane_dist": ("editdist", "lane_distance", "launches",
+                  "iivision_tpu_torch/csrc/editdist.cu",
+                  "iivision_tpu/ops/distance.py:150"),
     "dist_pairs": ("editdist", "dist_pairs_elementwise", "launches",
                    "iivision_tpu_torch/csrc/editdist.cu",
-                   "iivision_tpu/ops/editdist.py:232"),
+                   "iivision_tpu/ops/distance.py:72"),
     "subop_chain": ("subop", "sub_op_chain", "launches",
                     "iivision_tpu_torch/csrc/subop.cu",
                     "iivision_tpu/encoder.py:567"),
@@ -115,7 +121,7 @@ KERNELS = {
                           "iivision_tpu_torch/csrc/subop.cu",
                           "iivision_tpu/encoder.py:583"),
     "subop_bench": ("subop_bench", "run_kernel", "launches",
-                    "iivision_tpu_torch/csrc/subop.cu",
+                    "iivision_tpu_torch/csrc/subop_bench.cu",
                     "tools/bench_subop_pallas.py:183"),
 }
 # kernel B: the card-side per-step reference; no path may launch it
@@ -190,6 +196,7 @@ def main():
     # -- 2. each kernel against its plain version -------------------------
     report = {}
     check_kernel_a(dev, report)
+    check_lane_dist(dev, report)
     check_chunk_start(dev, report)
     check_threefry(dev, report)
     check_body(dev, report)
@@ -220,12 +227,12 @@ def main():
                  dict(colour_model="yiq")),
                 ("hgr_2s_yiq", yiq, run_movie, (dev, hgr, 8, 1, 2),
                  dict(colour_model="yiq")),
-                ("hgr_2s_mono", enc + ("dist_pairs",), run_mono, (dev, hgr),
+                ("hgr_2s_mono", enc + ("lane_dist",), run_mono, (dev, hgr),
                  {}),
                 ("batch_dhgr_b32_10s_k16_j4", enc, run_batch, (dev,), {}),
                 ("batch_cli_mixed", enc, run_cli_mixed, (dev,), {}),
                 ("quality_dhgr_5s_k16_j4",
-                 enc + ("dist_pairs", "encode_body_joint"), run_quality,
+                 enc + ("lane_dist", "encode_body_joint"), run_quality,
                  (dev,), {})):
             _, launches = counted(path, want, fn, *args, **kw)
             for name, n in launches.items():
@@ -347,9 +354,11 @@ def check_kernel_a(dev, report):
     code set under an asymmetric cost matrix (the kernel's own check must
     send it the general way), and whole DHGR 8192^2 and HGR 16384^2 lanes
     on the symmetric path on 64 sampled rows each.
-    Elementwise: 8192 random pairs at L = 10 and 18.  Times per lane: DHGR
-    and HGR on the symmetric path (the LUT build's call), DHGR on the
-    general path beside them."""
+    The codes entry (dist_pairs, on no counted path since the lane-distance
+    entry): 8192 pairs at L = 10 and 18, half of them one adjacent swap
+    apart, timed there and at 2^20 pairs.  Times per lane: DHGR and HGR on
+    the symmetric path (the LUT build's call), DHGR on the general path
+    beside them."""
     import numpy as np
     import torch
 
@@ -432,8 +441,8 @@ def check_kernel_a(dev, report):
         print(line)
         del out
 
-    # the encoder's chunk-start diff shapes: both lanes of a bank, L = 10
-    # (DHGR) and L = 18 (HGR), under the NTSC window basis
+    # the codes entry: (2, 32, 128) pairs of code strings, L = 10 (DHGR) and
+    # L = 18 (HGR), under the NTSC window basis
     rng = np.random.RandomState(7)
     wsub = torch.as_tensor(distance.sub_for(VideoMode.HGR, Palette.NTSC)
                            .astype(np.int32), device=dev)
@@ -448,17 +457,31 @@ def check_kernel_a(dev, report):
                      200)
         plain_ms = cuda_ms(
             lambda: distance.dist_pixel_pairs_plain(pa, pb, wsub), 50)
-        print("kernel A elementwise 8192 pairs L=%d: max_abs_err=%d "
-              "ms=%.4f plain_ms=%.4f" % (L, err, ms, plain_ms))
+        # its loads are strided by L words per thread (left so): the time
+        # at the store-cost build's 2^20 pairs shows what that costs
+        big_a, big_b = (torch.as_tensor(rng.randint(0, 16, (1 << 20, L)),
+                                        dtype=torch.int32, device=dev)
+                        for _ in range(2))
+        ms_big = cuda_ms(
+            lambda: editdist.dist_pairs_elementwise(big_a, big_b, wsub), 20)
+        bnd_big = bound(2 * big_a.numel() * 4 + 1024 + (4 << 20),
+                        int_ops=4.0 * L * (1 << 20))
+        print("kernel A codes entry 8192 pairs L=%d: max_abs_err=%d "
+              "ms=%.4f plain_ms=%.4f; 2^20 pairs: ms=%.4f bound_ms=%.4f (%s)"
+              % (L, err, ms, plain_ms, ms_big, bnd_big["bound_ms"],
+                 bnd_big["bound_by"]))
         if err:
-            raise AssertionError("kernel A elementwise (L=%d) disagrees "
+            raise AssertionError("kernel A's codes entry (L=%d) disagrees "
                                  "with plain" % L)
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
         entry["ms" + tag] = ms
         entry["plain_ms" + tag] = plain_ms
+        entry["ms_2e20" + tag] = ms_big
+        entry["bound_ms_2e20" + tag] = bnd_big["bound_ms"]
         if not tag:
             entry.update(bound(2 * pa.numel() * 4 + 1024
-                               + pa[..., 0].numel() * 4))
+                               + pa[..., 0].numel() * 4,
+                               int_ops=4.0 * L * pa[..., 0].numel()))
 
 
 def code_pairs(rng, shape, L: int):
@@ -474,6 +497,172 @@ def code_pairs(rng, shape, L: int):
     np.put_along_axis(sw, i, np.take_along_axis(pa, i + 1, -1), -1)
     np.put_along_axis(sw, i + 1, np.take_along_axis(pa, i, -1), -1)
     return pa, np.where(rng.rand(*shape, 1) < 0.5, sw, pb)
+
+
+def swap_bits(rng, vals, n_bits: int, apart: int):
+    """`vals` with bits i and i + apart exchanged, i drawn per element.
+    Two neighbouring colour codes are 4-dot windows that share three dots
+    and sit one NTSC phase apart, so what transposes them is the exchange
+    of the two dots four apart around the shared ones: bits four apart of a
+    DHGR lane (whose value is its dots), two apart of an HGR lane (whose
+    body bits are two dots each)."""
+    i = rng.randint(0, n_bits - apart, vals.shape)
+    flip = ((vals >> i) ^ (vals >> (i + apart))) & 1
+    return vals ^ (flip << i) ^ (flip << (i + apart))
+
+
+def lane_dist_cases(dev, rng, mode, lane: int):
+    """[(what, a, b)]: the lane-distance check's pairs for one lane.  Every
+    masked value against a fixed one; random pairs as lane views of
+    (16, 32, 128, n_lanes) arrays (the scorer's call); pairs an exchange of
+    two dots apart that transposes neighbouring codes (`swap_bits`); a
+    column broadcast along rows (the store-cost build's call); a permuted
+    view."""
+    import torch
+
+    from iivision_tpu_torch.screen import spec_for_mode
+    from iivision_tpu_torch.video_mode import VideoMode
+
+    spec = spec_for_mode(mode)
+    bits = int(spec.MASKED_BITS)
+    n = 1 << bits
+    both = random_state(dev, rng, (2, 16, 32, 128, int(spec.N_LANES)), n)
+    va = rng.randint(0, n, (32, 128))
+    vb = swap_bits(rng, va, bits, 4 if mode == VideoMode.DHGR else 2)
+    new = random_state(dev, rng, (512, 128), n)
+    perm = random_state(dev, rng, (6, 7, 5), n).permute(2, 0, 1)
+    return [
+        ("every value against one",
+         torch.arange(n, dtype=torch.int32, device=dev),
+         torch.full((n,), int(rng.randint(n)), dtype=torch.int32,
+                    device=dev)),
+        ("lane views", both[0][..., lane], both[1][..., lane]),
+        ("swapped dots", torch.as_tensor(va, dtype=torch.int32, device=dev),
+         torch.as_tensor(vb, dtype=torch.int32, device=dev)),
+        ("broadcast column", new,
+         random_state(dev, rng, (512, 1), n).expand_as(new)),
+        ("permuted view", perm, perm.flip(0))]
+
+
+def check_lane_dist(dev, report):
+    """Kernel A's lane-distance entry (through distance.dist_lane_pairs)
+    against dist_lane_pairs_plain, bit-equal, for all 4 DHGR and both HGR
+    lanes under the NTSC window and the mono basis, on the pairs of
+    `lane_dist_cases`; each call must be one launch, and some swapped pairs
+    must reach the transposition branch.  One call under the profiler must
+    show one device kernel.  Timed at the scorer's 65,536 pairs and the
+    store-cost build's 2^20 pairs, DHGR and HGR, each beside its bound;
+    then the scorer's call end to end (wrapper and kernel) beside the
+    earlier form: lane_pixels on both sides, then the codes entry."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from iivision_tpu_torch.ops import distance, editdist
+    from iivision_tpu_torch.palettes import Palette
+    from iivision_tpu_torch.screen import spec_for_mode
+    from iivision_tpu_torch.video_mode import VideoMode
+
+    entry = report["lane_dist"] = dict(max_abs_err=0)
+    rng = np.random.RandomState(17)
+
+    def basis(mode, model):
+        return torch.as_tensor(distance.sub_for(mode, Palette.NTSC, model)
+                               .astype(np.int32), device=dev)
+
+    def hold(what, a, b, mode, lane, sub):
+        """One call against plain; returns how many pairs offer a
+        transposition (neighbouring codes exchanged and different)."""
+        before = editdist.lane_distance.launches
+        got = distance.dist_lane_pairs(a, b, mode, lane, sub)
+        if editdist.lane_distance.launches != before + 1:
+            raise AssertionError("dist_lane_pairs (%s) is not one launch"
+                                 % what)
+        want = distance.dist_lane_pairs_plain(a, b, mode, lane, sub)
+        err = int((got - want).abs().max())
+        if err or got.shape != a.shape or not torch.equal(got, want):
+            raise AssertionError("lane distance %s lane %d (%s) disagrees "
+                                 "with plain: max_abs_err=%d" % (
+                                     mode.name, lane, what, err))
+        pa = distance.lane_pixels(a, mode, lane)
+        pb = distance.lane_pixels(b, mode, lane)
+        return int(((pa[..., 1:] == pb[..., :-1])
+                    & (pa[..., :-1] == pb[..., 1:])
+                    & (pa[..., 1:] != pa[..., :-1])).any(-1).sum())
+
+    for mode in (VideoMode.DHGR, VideoMode.HGR):
+        nl = int(spec_for_mode(mode).N_LANES)
+        for model in ("window", "mono"):
+            sub = basis(mode, model)
+            pairs = transposed = 0
+            for lane in range(nl):
+                for what, a, b in lane_dist_cases(dev, rng, mode, lane):
+                    n_tr = hold(what, a, b, mode, lane, sub)
+                    pairs += a.numel()
+                    if what == "swapped dots":
+                        transposed += n_tr
+            print("lane distance %s %s: %d lanes, %d pairs, max_abs_err=0; "
+                  "%d of the swapped pairs offer a transposition" % (
+                      mode.name, model, nl, pairs, transposed))
+            if not transposed:
+                raise AssertionError("no pair reached the transposition "
+                                     "branch")
+
+    D = VideoMode.DHGR
+    for mode, tag in ((D, ""), (VideoMode.HGR, "_hgr")):
+        spec = spec_for_mode(mode)
+        n, L = 1 << int(spec.MASKED_BITS), int(spec.MASKED_DOTS)
+        sub = basis(mode, "window")
+        both = random_state(dev, rng, (2, 16, 32, 128, int(spec.N_LANES)), n)
+        C = distance.n_contents(mode)
+        new = random_state(dev, rng, ((1 << 20) // C, C), n)
+        col = random_state(dev, rng, (new.shape[0], 1), n)
+        for size, a, b, nbytes, reps in (
+                ("", both[0][..., 1], both[1][..., 1], 3 * 4 << 16, 200),
+                ("_2e20", new, col.expand_as(new),
+                 (2 * 4 << 20) + col.numel() * 4, 50)):
+            ms = cuda_ms(lambda: distance.dist_lane_pairs(a, b, mode, 1, sub),
+                         reps)
+            plain_ms = cuda_ms(lambda: distance.dist_lane_pairs_plain(
+                a, b, mode, 1, sub), 3)
+            # bytes: each lane value read once, each distance written, the
+            # cost matrix; int32 operations per step and pair: a shift and
+            # a mask for each side's code, then an add, two compares and a
+            # min (the rotation and HGR's dot expansion left out)
+            bnd = bound(nbytes + 1024, int_ops=8.0 * L * a.numel())
+            print("lane distance %s %d pairs L=%d: ms=%.4f plain_ms=%.4f "
+                  "bound_ms=%.5f (%s)" % (mode.name, a.numel(), L, ms,
+                                          plain_ms, bnd["bound_ms"],
+                                          bnd["bound_by"]))
+            entry["ms" + tag + size] = ms
+            entry["plain_ms" + tag + size] = plain_ms
+            entry["bound_ms" + tag + size] = bnd["bound_ms"]
+            if not tag + size:
+                entry.update(bnd)
+
+    # the scorer's call: one device kernel; wrapper and kernel, against the
+    # earlier form's torch ops (host time, which cuda_ms does not see)
+    sub = basis(D, "window")
+    both = random_state(dev, rng, (2, 16, 32, 128, 4), 1 << 13)
+    a, b = both[0][..., 1], both[1][..., 1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        distance.dist_lane_pairs(a, b, D, 1, sub)
+        torch.cuda.synchronize()
+    by_name, _ = profiled_kernels(prof)
+    if sum(v[0] for v in by_name.values()) != 1 \
+            or not any("lane_dist" in k for k in by_name):
+        raise AssertionError("dist_lane_pairs ran %s on the card, not one "
+                             "lane-distance kernel" % by_name)
+    after = wrapper_ms(lambda: distance.dist_lane_pairs(a, b, D, 1, sub), 50)
+    before = wrapper_ms(lambda: editdist.dist_pairs_elementwise(
+        distance.lane_pixels(a, D, 1), distance.lane_pixels(b, D, 1), sub),
+        50)
+    print("dist_lane_pairs DHGR 65536 pairs, wrapper and kernel: "
+          "wrapper_ms=%.4f (one kernel: %s); lane_pixels on both sides, then "
+          "the codes entry: wrapper_ms=%.4f" % (after, list(by_name)[0],
+                                                before))
+    entry.update(wrapper_ms=after, wrapper_ms_codes_form=before)
 
 
 def random_state(dev, rng, shape, hi: int):
@@ -924,39 +1113,89 @@ def check_kernel_b_joint(dev, report):
         raise AssertionError("joint content on the crafted page: %s" % rec)
 
 
+# Dependent cycles of one kernel C sub-op, from its instruction sequence,
+# at 4 cycles per dependent ALU operation and 24 per shuffle (assumed; the
+# card host has no profiler that could measure them).  One argmax: the
+# lane's 8-deep scan, a compare and a select each (8 x 8 = 64), then five
+# exchanges of a shuffle and a three-operation compare-and-select
+# (5 x 36 = 180): 244.  A sub-op is four argmaxes one after another, the
+# primary's product and sum ahead of its scan (8, on the updated
+# priority), the eligibility select behind it (12), each companion round's
+# drop-out (3 x 10) and the gated update (8): 4 x 244 + 58 = 1034.
+SUBOP_CHAIN_CYCLES = 1034
+SM_CLOCK_HZ = 1.98e9
+
+
 def check_kernel_c(dev, report):
-    """Kernel C against the plain loop at the microbenchmark's shape
-    (B*K = 512 rows, T = 100), on its seeded inputs with one crafted row
-    whose only companion is offset 0: final up/dw/by bit-equal."""
+    """Kernel C against the plain loop, final up/dw/by bit-equal, at the
+    microbenchmark's 512 rows and at 509 (the last block holds one row),
+    T = 0, 1 and 100, on its seeded inputs with three crafted rows (the
+    last three, so at 509 rows they span the partial block): offset 0 the
+    only companion (the later rounds come back to offset 0, which must stay
+    stored), every priority and score equal (only the nonce and the
+    first-index rule break the ties), and all zero (no real sub-op).
+    Timed at T = 100, 400 and 1000 with the slope; the T = 100 time stands
+    beside its bound and beside the design's dependent-chain floor."""
+    import numpy as np
     import torch
 
     from iivision_tpu_torch import bench_subop
     from iivision_tpu_torch.ops import subop_bench
 
-    T = 100
+    worst = 0.0
+    for R in (32 * 16, 509):
+        args = bench_subop.fresh(R, 999, dev)
+        up, dw, by, _ = args
+        for a in (up, dw, by):
+            a[R - 3:] = 0.0
+        up[R - 3, 10], up[R - 3, 0] = 1000.0, 500.0
+        dw[R - 3, 10], dw[R - 3, 0] = 900.0, 800.0
+        up[R - 2], dw[R - 2] = 50.0, 40.0
+        after = {}
+        for T in (0, 1, 100):
+            got = subop_bench.run_kernel(*args, T)
+            want = after[T] = subop_bench.run_plain(*args, T)
+            torch.cuda.synchronize()
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            worst = max(worst, err)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError("kernel C disagrees with the plain loop "
+                                     "at R=%d T=%d: max_abs_err=%g"
+                                     % (R, T, err))
+        # after one sub-op offset 0 holds its cost (by = 0: 1.0) and the
+        # primary's content; the all-zero row never moves
+        up1, _, by1 = after[1]
+        if float(up1[R - 3, 0]) != 1.0 or by1[R - 3, 0] != args[3][R - 3, 10] \
+                or float(after[100][0][R - 1].abs().max()) != 0.0:
+            raise AssertionError("the crafted rows did not do their work")
+        print("kernel C R=%d T=0,1,100: max_abs_err=%g (crafted rows: "
+              "offset-0 companion after one sub-op up[0]=%g by[0]=%g, ties, "
+              "all zero)" % (R, worst, up1[R - 3, 0], by1[R - 3, 0]))
+
     args = bench_subop.fresh(32 * 16, 999, dev)
-    for a in args[:3]:
-        a[0] = 0.0
-    args[0][0, 10], args[0][0, 0] = 1000.0, 500.0
-    args[1][0, 10], args[1][0, 0] = 900.0, 800.0
-    got = subop_bench.run_kernel(*args, T)
-    want = subop_bench.run_plain(*args, T)
-    torch.cuda.synchronize()
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
-        raise AssertionError("kernel C disagrees with the plain loop")
-    ms = cuda_ms(lambda: subop_bench.run_kernel(*args, T), 50)
-    plain_ms = cuda_ms(lambda: subop_bench.run_plain(*args, T), 2)
     R = args[0].shape[0]
-    # four (R, 256) float32 inputs read, three written; six float32 ops per
-    # offset per sub-op (two products and a sum for the score, a product
-    # and a sum for the cost row, a difference)
-    bnd = bound(7 * R * 256 * 4, 6.0 * T * R * 256)
-    print("kernel C B=32 K=16 T=%d: max_abs_err=%g ms=%.4f plain_ms=%.4f "
-          "bound_ms=%.5f (%s)" % (T, err, ms, plain_ms, bnd["bound_ms"],
-                                  bnd["bound_by"]))
-    report["subop_bench"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 **bnd)
+    ts = (100, 400, 1000)
+    ms = [cuda_ms(lambda: subop_bench.run_kernel(*args, T), reps)
+          for T, reps in zip(ts, (50, 20, 10))]
+    slope_us = float(np.polyfit(ts, ms, 1)[0]) * 1e3
+    plain_ms = cuda_ms(lambda: subop_bench.run_plain(*args, ts[0]), 2)
+    # four (R, 256) float32 inputs read, three written; per offset and
+    # sub-op 28 float32 operations: six of arithmetic (two products and a
+    # sum for the score, a product and a sum for the cost row, a
+    # difference), a compare and two selects for each of the four argmaxes
+    # (12), the eligibility's two compares and select (3), one drop-out
+    # select per companion round (3), four gated-update selects
+    bnd = bound(7 * R * 256 * 4, 28.0 * ts[0] * R * 256)
+    floor_ms = ts[0] * SUBOP_CHAIN_CYCLES / SM_CLOCK_HZ * 1e3
+    print("kernel C B=32 K=16: T=%d ms=%.4f, T=%d ms=%.4f, T=%d ms=%.4f, "
+          "slope us_per_subop=%.4f; T=%d: plain_ms=%.4f bound_ms=%.5f (%s) "
+          "chain_floor_ms=%.4f (%d cycles a sub-op at %.2f GHz)" % (
+              ts[0], ms[0], ts[1], ms[1], ts[2], ms[2], slope_us, ts[0],
+              plain_ms, bnd["bound_ms"], bnd["bound_by"], floor_ms,
+              SUBOP_CHAIN_CYCLES, SM_CLOCK_HZ / 1e9))
+    report["subop_bench"] = dict(
+        max_abs_err=worst, ms=ms[0], ms_t400=ms[1], ms_t1000=ms[2],
+        slope_us=slope_us, plain_ms=plain_ms, chain_floor_ms=floor_ms, **bnd)
 
 
 def check_golden(dev):
@@ -1077,7 +1316,7 @@ def run_movie(dev, mode, k: int, j: int, seconds: int,
 
 def run_mono(dev, mode):
     """A 2 s mono clip (k=8, j=1).  No mono table is shipped, so its Movie
-    builds one on the card (kernel A elementwise, L = 18 for HGR) into the
+    builds one on the card (kernel A's lane distance, HGR) into the
     empty temporary cache; 64 sampled rows of the table the clip encoded
     with are then held against the plain build on the CPU."""
     import numpy as np

@@ -38,6 +38,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "iiv_editdist_tile": [_P, _I, _P, _I, _I, _P, _I, _P, _P],
     "iiv_dist_pairs": [_P, _P, _L, _I, _P, _P, _P],
+    "iiv_lane_dist": [_P, _L, _L, _P, _L, _L, _L, _L, _I, _I, _P, _P, _P],
     "iiv_subop_chain": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                         _P],
     "iiv_subop_bench": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],

@@ -58,7 +58,8 @@
 // p's maximum; warp 0 ranks; warp r < k then runs slot r's sub-ops on its
 // own page, each lane holding 8 offsets (t = 32 i + lane) in registers,
 // each argmax a local 8-way scan plus five butterfly shuffles with kernel
-// B's tie rule (the first maximal index).  No block barrier sits inside a
+// B's tie rule (the first maximal index; warp_argmax.cuh, which kernel C,
+// the sub-op microbenchmark, shares).  No block barrier sits inside a
 // sub-op chain.  At the end up and dw go back to int32 with __float2int_rz
 // (torch's truncation) and by to the bank bytes.
 //
@@ -83,14 +84,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "warp_argmax.cuh"
+
 namespace {
 
 constexpr int kPages = 32;
 constexpr int kOffsets = 256;
 constexpr int kCells = kPages * kOffsets;  // one bank: 8192 bytes
 constexpr int kThreads = 1024;             // 32 warps
-constexpr int kPerLane = kOffsets / 32;    // offsets per lane of a page warp
-constexpr unsigned kFull = 0xffffffffu;
 // dynamic shared memory: up, dw (float), row (uint16), by, tb (uint8)
 constexpr int kSmemBytes = kCells * (4 + 4 + 2 + 1 + 1);
 // the joint rule's per-warp lists of eligible offsets: (row * C, dw + 2^23)
@@ -132,25 +133,6 @@ __device__ __forceinline__ uint2 fold_in(uint2 key, uint32_t d) {
 __device__ __forceinline__ float uniform_at(uint2 key, uint32_t n) {
   const uint2 y = threefry2x32(key.x, key.y, 0u, n);
   return __fsub_rn(__uint_as_float(((y.x ^ y.y) >> 9) | 0x3F800000u), 1.f);
-}
-
-// (value, index) pair is better if larger, or equal with a lower index:
-// the first maximal index, as jnp.argmax / torch.argmax return it.
-__device__ __forceinline__ bool better(float v, int i, float v2, int i2) {
-  return v > v2 || (v == v2 && i < i2);
-}
-
-// Warp-wide argmax of one (value, index) per lane; every lane gets it.
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float v2 = __shfl_xor_sync(kFull, v, off);
-    const int i2 = __shfl_xor_sync(kFull, i, off);
-    if (better(v2, i2, v, i)) {
-      v = v2;
-      i = i2;
-    }
-  }
 }
 
 // Keep the three largest values seen (a >= b >= c; all start at 0, so only
@@ -325,33 +307,8 @@ __device__ void run_slot(const Body& a, float* up_s, float* dw_s,
       const float score = __fsub_rn(dwv[i], scv[i]);
       sl[i] = (upv[i] > 0.f && score > 0.f && o != off0) ? score : -1.f;
     }
-    unsigned comp = 0;
     int offs[3];
-#pragma unroll
-    for (int rr = 0; rr < 3; ++rr) {
-      float v = -FLT_MAX;
-      int o = INT_MAX;
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i)
-        if (sl[i] > v) {
-          v = sl[i];
-          o = i * 32 + lane;
-        }
-      warp_argmax(v, o);
-      const bool hit = v > 0.f;
-      offs[rr] = hit ? o : off0;
-      if ((o & 31) == lane) {
-        // a later round can pick a hit offset again (every sl at -1 sends
-        // argmax to offset 0): it stays a companion
-        const int i = o >> 5;
-#pragma unroll
-        for (int q = 0; q < kPerLane; ++q)
-          if (q == i) {
-            if (hit) comp |= 1u << q;
-            sl[q] = -1.f;
-          }
-      }
-    }
+    const unsigned comp = companion_rounds(sl, off0, lane, offs);
 
     if (real) {
 #pragma unroll

@@ -14,7 +14,8 @@
 //   2. the target lane, read from lanes_tgt[movie, frame] (the frame is an
 //      index: no slice is copied);
 //   3. both lanes' dot sequences: DHGR's 13-bit lane is its dots, HGR
-//      values expand to 21 dots (hgr_to_dots);
+//      values expand to 21 dots (hgr_to_dots, in lane_codes.cuh with the
+//      colour codes, which kernel A's lane-distance entry shares);
 //   4. the distance d:
 //      - (16, 16) bases: each 4-dot window rotates by the lane's NTSC phase
 //        into a colour code, then the diagonal Damerau-Levenshtein distance
@@ -43,45 +44,12 @@
 #include <cuda_runtime.h>
 
 #include "diag_dp.cuh"
+#include "lane_codes.cuh"
 
 namespace {
 
 constexpr int kOffsets = 256;
 constexpr int kMaxDots = 18;  // HGR's MASKED_DOTS; DHGR has 10
-
-// Each of bits 0..6 controls two dots; bit 6 spills a third dot (bit 14).
-__device__ __forceinline__ int double_pixels(int x) {
-  int dp = 0;
-#pragma unroll
-  for (int k = 0; k < 7; ++k) {
-    const int bit = (x >> k) & 1;
-    dp |= (bit << (2 * k)) | (bit << (2 * k + 1));
-  }
-  return dp | (((x >> 6) & 1) << 14);
-}
-
-// HGR 14-bit masked value -> 21-bit dot sequence (screen.py hgr_to_dots).
-__device__ __forceinline__ int hgr_to_dots(int mv, int byte_offset) {
-  const int h = (mv & 0b111) << 5;
-  const int hp = (h & 0x80) >> 7;
-  int res = double_pixels(h & 0x7F) >> (11 - hp);
-  int bp, body;
-  if (byte_offset == 0) {
-    const int b = (mv >> 3) & 0xFF;
-    bp = (b & 0x80) >> 7;
-    body = b & 0x7F;
-  } else {
-    bp = (mv >> 3) & 0x01;
-    body = (mv >> 4) & 0x7F;
-  }
-  res &= ~(0x3FFF << (3 + bp));
-  res ^= double_pixels(body) << (3 + bp);
-  const int f = (mv >> 12) & 0b11;
-  const int fp = (mv >> 11) & 0b01;
-  res &= ~(0xF << (17 + fp));
-  res ^= double_pixels(f) << (17 + fp);
-  return res & 0x1FFFFF;
-}
 
 // DHGR masked lane `lane` at column c from the page's main / aux rows.
 __device__ __forceinline__ int dhgr_lane_at(const int* main_s,
@@ -118,18 +86,6 @@ __device__ __forceinline__ int hgr_lane_at(const int* main_s, int lane,
   const int packed = hdr | (even << 3) | ((odd & 0x80) << 4) |
                      ((odd & 0x7F) << 12) | (ftr << 19);
   return (packed >> (8 * lane)) & 0x3FFF;
-}
-
-// A lane value's L colour codes: the 4-dot window at dot i, rotated left
-// by the NTSC phase (phase + i) mod 4 (distance.lane_pixels).
-__device__ __forceinline__ void lane_codes(int dots, int L, int phase,
-                                           uint8_t* out) {
-  for (int i = 0; i < L; ++i) {
-    int w = (dots >> i) & 0xF;
-    const int r = (phase + i) & 3;
-    if (r) w = ((w << r) | (w >> (4 - r))) & 0xF;
-    out[i] = static_cast<uint8_t>(w);
-  }
 }
 
 // The yiq distance of two lanes' dot sequences: per-position window costs
@@ -176,10 +132,7 @@ chunk_start_kernel(const int32_t* __restrict__ banks,      // (B, nb, 32, 256)
     d = window_sums(da, db, L, sub + (size_t)lane * L * 128 * 128);
   } else {
     const int L = dhgr ? 10 : 18;
-    // NTSC phase of each lane's first masked bit: DHGR (1, 0, 3, 2), HGR
-    // (1, 3)
-    const int phase = dhgr ? (lane == 0 ? 1 : lane == 1 ? 0 : lane == 2 ? 3 : 2)
-                           : (lane == 0 ? 1 : 3);
+    const int phase = lane_phase(dhgr, lane);
     uint8_t a[kMaxDots], b[kMaxDots];
     lane_codes(da, L, phase, a);
     lane_codes(db, L, phase, b);

@@ -2,8 +2,8 @@
 // NTSC colour-code strings, for Hopper (sm_90a).
 //
 // Replaces iivision_tpu/ops/editdist.py:_editdist_kernel_factory (the Pallas
-// TPU kernel launched by pallas_distance), and computes the elementwise form
-// of iivision_tpu/ops/distance.py:dist_pixel_pairs.
+// TPU kernel launched by pallas_distance), and computes the elementwise forms
+// of iivision_tpu/ops/distance.py:dist_lane_pairs and dist_pixel_pairs.
 //
 // The recurrence is the diagonal reduction of the weighted
 // Damerau-Levenshtein distance (csrc/diag_dp.cuh):
@@ -15,7 +15,7 @@
 // step from 16-wide one-hot matmuls because its only fast unit is the MXU;
 // here a step is one shared-memory cost lookup and a few ALU operations.
 //
-// Two entries:
+// Three entries:
 //
 // - editdist_tile: all pairs of two code sets, (n_a, n_b) uint16.  What
 //   bounds it: the function's bound is its uint16 stores, 0.040 ms for a
@@ -55,14 +55,40 @@
 //     and a row runs as two groups of 4 pairs, so a group's unrolled steps
 //     keep their codes and loads in registers (64 registers at L = 10, 80
 //     at L = 18).
-// - dist_pairs: elementwise pairs (..., L) -> int32, one thread per pair:
-//   the store-cost build and the quality scorer.  (The encoder's chunk-start
-//   diff runs the same recurrence inside chunk_start.cu.)
+// - lane_dist: elementwise pairs of masked lane values -> int32, one thread
+//   per pair: the store-cost build and the quality scorer (the elementwise
+//   form of iivision_tpu/ops/distance.py:dist_lane_pairs for a (16, 16)
+//   cost basis, whose lane_pixels and dist_pixel_pairs XLA fuses).  The
+//   function needs 12 bytes per pair (two lane values in, one distance
+//   out), so the kernel reads exactly those, neighbouring threads on
+//   neighbouring words, and derives both strings' colour codes in registers
+//   (lane_codes.cuh, the chunk-start kernel's own device code): nothing of
+//   length L ever reaches memory.  The mode, and with it L (10 or 18), is
+//   compiled in, so the recurrence unrolls with every code in a register.
+//   Each side comes as a (rows, cols) view with its own two strides, so a
+//   lane sliced out of a (..., n_lanes) array or a column broadcast along
+//   a row is read in place.  What bounds it: at the store-cost build's 2^20
+//   pairs the bytes take 0.0025-0.0038 ms and the int32 operations (per
+//   step a shift and a mask for each code, then an add, two compares and a
+//   min) 0.0050 ms at L = 10 and 0.0090 ms at L = 18; the rotates, HGR's
+//   dot expansion and the shared-memory cost lookups (random codes collide
+//   on banks) come on top, so instruction issue is the limit: 0.0161 ms
+//   (DHGR) and 0.0296 ms (HGR) on one H100 80GB HBM3 at 700 W.  At the
+//   scorer's 65,536 pairs a launch costs more than the work (0.0031 ms).
+// - dist_pairs: elementwise pairs of (..., L) code strings -> int32, one
+//   thread per pair, any L up to 32: the counterpart of dist_pixel_pairs
+//   for callers that hold codes.  Its loads are strided by L words per
+//   thread and are left so (0.0372 ms at 2^20 pairs and L = 10 on the same
+//   card, 2.3x lane_dist, against 0.0263 ms for its 84 MB at the memory
+//   rate): the port's paths go through lane_dist.
+//   (The encoder's chunk-start diff runs the same recurrence inside
+//   chunk_start.cu.)
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "diag_dp.cuh"
+#include "lane_codes.cuh"
 
 namespace {
 
@@ -240,6 +266,34 @@ __global__ void dist_pairs_kernel(const int32_t* __restrict__ a,
   if (p < n) out[p] = diag_dp(a + p * L, 1, b + p * L, 1, L, sub_s);
 }
 
+// Pair p = r * cols + c reads a[r * a_rs + c * a_cs] and b likewise.
+template <bool kDhgr>
+__global__ void __launch_bounds__(256)
+lane_dist_kernel(const int32_t* __restrict__ a, long long a_rs,
+                 long long a_cs, const int32_t* __restrict__ b,
+                 long long b_rs, long long b_cs, unsigned n, unsigned cols,
+                 int lane, const int32_t* __restrict__ sub,
+                 int32_t* __restrict__ out) {
+  constexpr int L = kDhgr ? 10 : 18;
+  __shared__ int sub_s[256];
+  sub_s[threadIdx.x] = sub[threadIdx.x];
+  __syncthreads();
+  const unsigned p = blockIdx.x * 256u + threadIdx.x;
+  if (p >= n) return;
+  const unsigned r = p / cols, c = p - r * cols;
+  const int va = a[r * a_rs + c * a_cs], vb = b[r * b_rs + c * b_cs];
+  const int da = kDhgr ? va : hgr_to_dots(va, lane);
+  const int db = kDhgr ? vb : hgr_to_dots(vb, lane);
+  const int phase = lane_phase(kDhgr, lane);
+  int ap = lane_code(da, 0, phase), bp = lane_code(db, 0, phase);
+  int d_m2 = 0, d_m1 = sub_s[ap * 16 + bp];
+#pragma unroll
+  for (int k = 1; k < L; ++k)
+    diag_dp_step(d_m2, d_m1, ap, bp, lane_code(da, k, phase),
+                 lane_code(db, k, phase), sub_s);
+  out[p] = d_m1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -277,6 +331,33 @@ int iiv_dist_pairs(const int32_t* a, const int32_t* b, long long n, int L,
   dist_pairs_kernel<<<static_cast<unsigned>(blocks), threads, 0,
                       static_cast<cudaStream_t>(stream)>>>(a, b, n, L, sub,
                                                            out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[r * cols + c] = D(lane value a[r * a_rs + c * a_cs], lane value
+// b[r * b_rs + c * b_cs]) for rows x cols pairs (fewer than 2^31) of masked
+// values of lane `lane` (13-bit DHGR, lanes 0..3; 14-bit HGR, lanes 0..1),
+// under the (16, 16) int32 costs sub.  Strides count int32 elements.
+int iiv_lane_dist(const int32_t* a, long long a_rs, long long a_cs,
+                  const int32_t* b, long long b_rs, long long b_cs,
+                  long long rows, long long cols, int dhgr, int lane,
+                  const int32_t* sub, int32_t* out, void* stream) {
+  if (rows < 0 || cols < 0 || lane < 0 || lane >= (dhgr ? 4 : 2))
+    return cudaErrorInvalidValue;
+  if (rows == 0 || cols == 0) return cudaSuccess;
+  if (rows > (1ll << 31) / cols) return cudaErrorInvalidValue;
+  const long long n = rows * cols;
+  if (n >= (1ll << 31)) return cudaErrorInvalidValue;
+  const unsigned blocks = static_cast<unsigned>((n + 255) / 256);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dhgr)
+    lane_dist_kernel<true><<<blocks, 256, 0, s>>>(
+        a, a_rs, a_cs, b, b_rs, b_cs, static_cast<unsigned>(n),
+        static_cast<unsigned>(cols), lane, sub, out);
+  else
+    lane_dist_kernel<false><<<blocks, 256, 0, s>>>(
+        a, a_rs, a_cs, b, b_rs, b_cs, static_cast<unsigned>(n),
+        static_cast<unsigned>(cols), lane, sub, out);
   return static_cast<int>(cudaGetLastError());
 }
 

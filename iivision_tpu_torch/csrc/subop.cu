@@ -1,11 +1,9 @@
-// Kernels B and C, for Hopper (sm_90a).
-//
-// Kernel B: the encoder's sequential sub-op chain on the k selected pages of
-// each of B movies.  It computes iivision_tpu/encoder.py `sub_op` (the j
-// sequential op selections of one scan step on the extracted page rows),
-// which the JAX package runs as XLA ops inside its scan (batched over movies
-// with vmap), not as a Pallas kernel.  Kernel C (below) is the sub-op
-// microbenchmark's kernel, with its own stand-in math.
+// Kernel B, for Hopper (sm_90a): the encoder's sequential sub-op chain on
+// the k selected pages of each of B movies.  It computes
+// iivision_tpu/encoder.py `sub_op` (the j sequential op selections of one
+// scan step on the extracted page rows), which the JAX package runs as XLA
+// ops inside its scan (batched over movies with vmap), not as a Pallas
+// kernel.  (Kernel C, the sub-op microbenchmark, is subop_bench.cu.)
 //
 // Grid (k, B): one block per selected page of each movie, 256 threads:
 // thread t owns page offset t.  The movies share one plan, so the store-cost
@@ -262,87 +260,6 @@ subop_chain_kernel(float* __restrict__ rows,             // (B, k, 4, 256)
   row[2 * kOffsets + t] = by_s[t];
 }
 
-// Kernel C: the sub-op microbenchmark, T sequential sub-ops on every row.
-//
-// Replaces tools/bench_subop_pallas.py make_pallas.kernel (the Pallas TPU
-// kernel that holds (B*K, 256) f32 state in VMEM for a fori_loop of T
-// `_sub_op_math` steps).  The math differs from kernel B's: the nonce is a
-// hash of (jj, offset), the cost row is the stand-in by*0.5 + 1, content is
-// the float target value, there is no table, no nvalid and no record.
-//
-// One block per row, 256 threads: thread t owns offset t and keeps its up,
-// dw and by in registers for all T sub-ops; only tb is in shared memory,
-// for the content read at the primary offset.  Rows never interact, so the
-// T loop runs inside one launch with no grid-wide sync.  What bounds it: a
-// sub-op is four dependent block-wide argmaxes (warp shuffles and two
-// barriers each), about a microsecond of latency, while the 512 blocks of
-// the benchmark's shape fill the card's 132 SMs about four deep; memory is
-// touched only at the start and the end.
-//
-// Exactness: every rounding float op is explicit (__fmul_rn / __fadd_rn /
-// __fsub_rn), as XLA evaluates them one at a time; the hash is computed in
-// uint32, whose low 16 bits equal those of JAX's wrapping int32; the scale
-// is the double 255/65535 rounded to float once, as a Python float reaches
-// JAX.  The gated updates of the JAX form (up * (1 - umask) + ...) are
-// selects here, which give the same bits for state that stays >= 0.
-__global__ void __launch_bounds__(kOffsets)
-subop_bench_kernel(const float* __restrict__ up_in,
-                   const float* __restrict__ dw_in,
-                   const float* __restrict__ by_in,
-                   const float* __restrict__ tb_in, int T,
-                   float* __restrict__ up_out, float* __restrict__ dw_out,
-                   float* __restrict__ by_out) {
-  constexpr float kNonceScale = static_cast<float>(255.0 / 65535.0);
-  __shared__ float tb_s[kOffsets];
-  __shared__ float red_v[kWarps + 1];
-  __shared__ int red_i[kWarps + 1];
-  const int t = threadIdx.x;
-  const size_t at = (size_t)blockIdx.x * kOffsets + t;
-  float up = up_in[at], dw = dw_in[at], by = by_in[at];
-  tb_s[t] = tb_in[at];
-  const uint32_t hash_t = static_cast<uint32_t>(t) * 40503u;
-  __syncthreads();
-
-  for (int jj = 0; jj < T; ++jj) {
-    const bool real = __syncthreads_or(up > 0.f) != 0;
-    const uint32_t h =
-        (static_cast<uint32_t>(jj) * 507279793u + hash_t) & 0xffffu;
-    const float nonce = __fmul_rn(static_cast<float>(h), kNonceScale);
-    const float score0 = __fadd_rn(__fmul_rn(up, 256.f), nonce);
-    float best;
-    const int off0 = block_argmax(score0, &best, red_v, red_i);
-    const float content = tb_s[off0];
-
-    const float sc = __fadd_rn(__fmul_rn(by, 0.5f), 1.f);
-    const float score = __fsub_rn(dw, sc);
-    float sl = (up > 0.f && score > 0.f && t != off0) ? score : -1.f;
-    bool companion = false;
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      const int o = block_argmax(sl, &best, red_v, red_i);
-      if (t == o) {
-        // a later round can pick a hit offset again (every sl at -1 sends
-        // argmax to offset 0): it stays a companion
-        companion = companion || best > 0.f;
-        sl = -1.f;
-      }
-    }
-    if (real) {
-      if (t == off0) {
-        up = 0.f;
-        dw = 0.f;
-        by = content;
-      } else if (companion) {
-        up = sc;
-        by = content;
-      }
-    }
-  }
-  up_out[at] = up;
-  dw_out[at] = dw;
-  by_out[at] = by;
-}
-
 }  // namespace
 
 extern "C" {
@@ -373,19 +290,6 @@ int iiv_subop_chain(float* rows, const int32_t* sc_rows, const int16_t* table,
     subop_chain_kernel<false><<<grid, kOffsets, 0, s>>>(
         rows, sc_rows, table, C, nonce, pages, pad_content, k, j, nvalid,
         recs);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Kernel C: T sub-ops of the microbenchmark on each of R rows.  up, dw, by,
-// tb: (R, 256) float32 inputs; up_out, dw_out, by_out: (R, 256) float32
-// outputs (the inputs are not written).  Returns the launch's cudaError_t.
-int iiv_subop_bench(const float* up, const float* dw, const float* by,
-                    const float* tb, int R, int T, float* up_out,
-                    float* dw_out, float* by_out, void* stream) {
-  if (R < 0 || T < 0) return cudaErrorInvalidValue;
-  if (R == 0) return cudaSuccess;
-  subop_bench_kernel<<<R, kOffsets, 0, static_cast<cudaStream_t>(stream)>>>(
-      up, dw, by, tb, T, up_out, dw_out, by_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -8,7 +8,7 @@
   all-pairs entry (upper triangle, symmetrised at load;
   `editdist.save_tables`).
 - `--what store_cost`: the encoder's store-cost tables for `--models`,
-  through kernel A's elementwise entry (window) or the yiq window sums
+  through kernel A's lane-distance entry (window) or the yiq window sums
   (`distance.save_store_cost`).  The encoder builds a missing
   table itself on first use (mono has none shipped).
 

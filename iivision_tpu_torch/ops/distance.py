@@ -11,7 +11,11 @@ iivision_tpu/ops/distance.py).
   Pallas).
 - `dist_lane_pairs`: either of the two, chosen by the rank of `sub` as in
   the JAX package: (16, 16) is the window (or mono) edit distance,
-  (n_lanes, L, 128, 128) the yiq sums.
+  (n_lanes, L, 128, 128) the yiq sums.  The edit distance on a CUDA tensor
+  is one launch of kernel A's lane-distance entry (ops/editdist.py
+  `lane_distance`), which derives the codes itself; its plain form is
+  `dist_lane_pairs_plain`: `lane_pixels` on both sides, then
+  `dist_pixel_pairs_plain`.
 - `build_store_cost` / `store_cost_table`: the int16 store-cost tables,
   loaded from the shipped npz files (under `DATA_DIR`, read by path) or
   the user cache, or built and saved there.
@@ -116,6 +120,15 @@ def dist_window_sums_sub2(wa: torch.Tensor, wb: torch.Tensor,
                         for a, b, s in zip(wa, wb, subs2)])
 
 
+def dist_lane_pairs_plain(va: torch.Tensor, vb: torch.Tensor,
+                          mode: VideoMode, lane: int,
+                          sub: torch.Tensor) -> torch.Tensor:
+    """The (16, 16)-basis lane distance as plain torch ops: both sides'
+    colour codes, then the recurrence."""
+    return dist_pixel_pairs_plain(lane_pixels(va, mode, lane),
+                                  lane_pixels(vb, mode, lane), sub)
+
+
 def dist_lane_pairs(va: torch.Tensor, vb: torch.Tensor, mode: VideoMode,
                     lane: int, sub: torch.Tensor) -> torch.Tensor:
     """Distance between masked-lane value arrays (elementwise pairs).
@@ -127,8 +140,9 @@ def dist_lane_pairs(va: torch.Tensor, vb: torch.Tensor, mode: VideoMode,
 
         return dist_window_sums(yiq.lane_windows(va, mode, lane),
                                 yiq.lane_windows(vb, mode, lane), sub[lane])
-    return dist_pixel_pairs(lane_pixels(va, mode, lane),
-                            lane_pixels(vb, mode, lane), sub)
+    from iivision_tpu_torch.ops import editdist
+
+    return editdist.lane_distance(va, vb, mode, lane, sub)
 
 
 @functools.lru_cache(None)
@@ -224,7 +238,7 @@ def build_store_cost(mode: VideoMode, palette: Palette, model: str,
                      device) -> torch.Tensor:
     """(n_lanes, 2^B, C) int32 store costs built on `device`
     (iivision_tpu/ops/distance.py `_build_store_cost`).  The window and mono
-    models run kernel A's elementwise entry on a card and the plain
+    models run kernel A's lane-distance entry on a card and the plain
     recurrence on the CPU; yiq runs the window gather-sums."""
     spec = spec_for_mode(mode)
     n = 1 << int(spec.MASKED_BITS)
@@ -262,8 +276,11 @@ def store_cost_table(mode: VideoMode, palette: Palette, model: str,
                             _user_cache_dir())
         except OSError:
             pass  # read-only home: rebuild next process
-    if cost.max() >= 1 << 15:
-        raise ValueError("store costs overflow int16: max %d" % cost.max())
+    # the joint body kernel reads a cost's bits as a float, which is exact
+    # only for 0 <= cost < 2^15
+    if cost.min() < 0 or cost.max() >= 1 << 15:
+        raise ValueError("store costs outside 0 .. 2^15 - 1: min %d, max %d"
+                         % (cost.min(), cost.max()))
     return cost.astype(np.int16)
 
 

@@ -9,8 +9,12 @@ its proof, are in the JAX module's docstring.  This module has:
 - `pair_distance`: all pairs through kernel A's `editdist_tile` entry (the
   counterpart of the Pallas `pallas_distance`); `same_codes` tells the
   kernel that both sides are one code set (its symmetric path);
-- `dist_pairs_elementwise`: elementwise pairs through kernel A's
-  `dist_pairs` entry (the store-cost build and the quality scorer);
+- `lane_distance`: elementwise pairs of masked lane values through kernel
+  A's `lane_dist` entry, which derives the colour codes itself (the
+  store-cost build and the quality scorer, through
+  `distance.dist_lane_pairs`);
+- `dist_pairs_elementwise`: elementwise pairs of (..., L) code strings
+  through kernel A's `dist_pairs` entry;
 - `edit_distance_matrix` and `build_tables`: whole-lane LUTs.
 
 A wrapper runs its plain version only for CPU tensors.  For CUDA tensors
@@ -255,6 +259,86 @@ def dist_pairs_elementwise(pa: torch.Tensor, pb: torch.Tensor,
 
 
 dist_pairs_elementwise.launches = 0
+
+
+def _merged_stride(shape, stride):
+    """The one element stride that walks the given dims in row-major order,
+    or None if they do not merge (dims of size 1 never matter)."""
+    dims = [(n, s) for n, s in zip(shape, stride) if n != 1]
+    for (_, s0), (n1, s1) in zip(dims, dims[1:]):
+        if s0 != n1 * s1:
+            return None
+    return dims[-1][1] if dims else 0
+
+
+def rows_cols(va: torch.Tensor, vb: torch.Tensor):
+    """Both tensors (one shape) as one (rows, cols) grid with a row and a
+    column stride each, read in place: (va, vb, rows, cols, (a_rs, a_cs),
+    (b_rs, b_cs)).  A lane sliced out of a (..., n_lanes) array merges into
+    one strided row; a column broadcast along a row keeps stride 0.  Where
+    no split of the dims merges for both, contiguous copies are taken."""
+    shape = tuple(va.shape)
+    for split in range(len(shape) + 1):
+        strides = []
+        for t in (va, vb):
+            rs = _merged_stride(shape[:split], t.stride()[:split])
+            cs = _merged_stride(shape[split:], t.stride()[split:])
+            strides.append(None if rs is None or cs is None else (rs, cs))
+        if None not in strides:
+            rows = int(np.prod(shape[:split], dtype=np.int64))
+            cols = int(np.prod(shape[split:], dtype=np.int64))
+            return va, vb, rows, cols, strides[0], strides[1]
+    return rows_cols(va.contiguous(), vb.contiguous())
+
+
+def lane_distance(va: torch.Tensor, vb: torch.Tensor, mode: VideoMode,
+                  lane: int, sub: torch.Tensor) -> torch.Tensor:
+    """(...) int32 distances of elementwise pairs of masked lane values
+    under a (16, 16) cost basis (kernel A, lane distance): one launch that
+    derives both sides' colour codes in registers.
+
+    va, vb: one shape, values of lane `lane` of `mode` (13-bit DHGR, 14-bit
+    HGR).  CPU tensors run distance.dist_lane_pairs_plain.  On a card both
+    must be int32 (any strides: they are read in place where the dims
+    merge into a (rows, cols) grid), fewer than 2^31 pairs."""
+    if va.shape != vb.shape:
+        raise ValueError("pair shapes differ: %s vs %s"
+                         % (tuple(va.shape), tuple(vb.shape)))
+    if not 0 <= lane < spec_for_mode(mode).N_LANES:
+        raise ValueError("%s has no lane %d" % (mode.name, lane))
+    if sub.shape != (16, 16):
+        raise ValueError("cost matrix must be (16, 16), got %s"
+                         % (tuple(sub.shape),))
+    if va.device.type == "cpu":
+        from iivision_tpu_torch.ops.distance import dist_lane_pairs_plain
+
+        return dist_lane_pairs_plain(va, vb, mode, lane, sub)
+    if vb.device != va.device or va.dtype != torch.int32 \
+            or vb.dtype != torch.int32:
+        raise ValueError("kernel A's lane distance takes int32 tensors on "
+                         "one device, got %s on %s and %s on %s" % (
+                             va.dtype, va.device, vb.dtype, vb.device))
+    if va.device.type != "cuda":
+        raise ValueError("no kernel for device %s" % va.device)
+    if va.numel() >= 1 << 31:
+        raise ValueError("%d pairs (kernel takes fewer than 2^31)"
+                         % va.numel())
+    out = torch.empty(va.shape, dtype=torch.int32, device=va.device)
+    if va.numel() == 0:
+        return out
+    va, vb, rows, cols, (a_rs, a_cs), (b_rs, b_cs) = rows_cols(va, vb)
+    sub_d = _sub_i32(sub, va.device)
+    _build.launch("iiv_lane_dist", ctypes.c_void_p(va.data_ptr()), a_rs, a_cs,
+                  ctypes.c_void_p(vb.data_ptr()), b_rs, b_cs, rows, cols,
+                  int(mode == VideoMode.DHGR), int(lane),
+                  ctypes.c_void_p(sub_d.data_ptr()),
+                  ctypes.c_void_p(out.data_ptr()),
+                  ctypes.c_void_p(_build.stream_ptr(va.device)))
+    lane_distance.launches += 1
+    return out
+
+
+lane_distance.launches = 0
 
 
 def lane_codes(mode: VideoMode, lane: int, device) -> torch.Tensor:

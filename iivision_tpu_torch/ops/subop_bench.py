@@ -15,8 +15,9 @@ arrays are the whole result.
   state that stays >= 0 (as `fresh()` makes it) they give the same bits.
 - `run_plain` / `run_plain_i16`: T sub-ops as an eager loop (the tool's
   `xla` and `xla_i16` variants, which are XLA, not Pallas).
-- `run_kernel`: T sub-ops in one launch of kernel C (csrc/subop.cu
-  `iiv_subop_bench`, the counterpart of the Pallas `make_pallas.kernel`).
+- `run_kernel`: T sub-ops in one launch of kernel C (csrc/subop_bench.cu
+  `iiv_subop_bench`, the counterpart of the Pallas `make_pallas.kernel`:
+  a warp per row on the body kernel's warp argmax, csrc/warp_argmax.cuh).
   A CPU tensor runs `run_plain`; a CUDA tensor launches the kernel or
   raises.  `run_kernel.launches` counts the launches.
 """

@@ -5,8 +5,8 @@ iivision_tpu/quality.py `score_screens` / `replay_frame_errors`).
 schedule, as the player executes it (`replay_ops`, numpy, copied from the
 JAX module), and scores the screen at each encoded-frame boundary with the
 encoder's own perceptual lane distance: `distance.dist_lane_pairs`, which
-is kernel A's elementwise entry on a card (window and mono models) or the
-yiq window sums.  It is the fidelity number that compares encoder
+is kernel A's lane-distance entry on a card (window and mono models) or
+the yiq window sums.  It is the fidelity number that compares encoder
 settings (k, j, joint content) on equal footing.
 """
 

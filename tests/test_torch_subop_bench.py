@@ -67,6 +67,46 @@ def test_sub_op_math_matches_tool_xla(T):
         assert torch.equal(g, w)
 
 
+def crafted_rows(kind):
+    """(up, dw, by, tb) of 4 rows whose first three are crafted, over the
+    seeded inputs: `companion0`: the primary is offset 10 and offset 0 the
+    only companion, so the later rounds find every score at -1 and come
+    back to offset 0, which must stay stored; `ties`: every priority and
+    every companion score equal, so only the nonce and the first-index
+    rule decide; `zero`: nothing pending, no real sub-op."""
+    up, dw, by, tb = fresh(4, 77)
+    for a in (up, dw, by):
+        a[:3] = 0.0
+    if kind == "companion0":
+        up[:3, 10], up[:3, 0] = 1000.0, 500.0
+        dw[:3, 10], dw[:3, 0] = 900.0, 800.0
+    elif kind == "ties":
+        up[:3], dw[:3] = 50.0, 40.0
+    return up, dw, by, tb
+
+
+@pytest.mark.parametrize("T", [1, 2, 40])
+@pytest.mark.parametrize("kind", ["companion0", "ties", "zero"])
+def test_crafted_rows_match_tool_xla(kind, T):
+    """The rows the card check gives kernel C, through the plain loop and
+    the tool's `_sub_op_math` under `lax.scan`: bit-equal."""
+    up, dw, by, tb = crafted_rows(kind)
+    want = jax_scan(TOOL._sub_op_math, T, *(jnp.asarray(a)
+                                            for a in (up, dw, by, tb)))
+    got = subop_bench.run_plain(*(torch.as_tensor(a)
+                                  for a in (up, dw, by, tb)), T)
+    for g, w in zip(got, want):
+        assert np.array_equal(g.numpy().view(np.int32), w.view(np.int32))
+    u, _, b = (g.numpy() for g in got)
+    if kind == "companion0" and T == 1:
+        # offset 0 took its cost (by = 0: 0 * 0.5 + 1) and the content
+        assert u[0, 10] == 0.0 and u[0, 0] == 1.0 and b[0, 0] == tb[0, 10]
+    elif kind == "ties":
+        assert (u[0] == 0.0).sum() == min(T, 256)  # one primary a sub-op
+    elif kind == "zero":
+        assert not u[:3].any() and not b[:3].any()
+
+
 @pytest.mark.parametrize("T", [1, 7, 40])
 def test_sub_op_math_int_matches_tool_xla_i16(T):
     """The int16-carry variant: int16 state between sub-ops, int32 math."""
