@@ -53,7 +53,20 @@ after it:
   with and without joint content (the body kernel's joint
   instantiation), replayed and scored on the card: each mean error within
   1.01x of tests/data/quality_baseline.json, and joint below the default
-  rule's baseline.
+  rule's baseline; `stream_psnr` of the final screen against the last
+  target is printed;
+- the long-movie encoders: a 60 s DHGR clip (900 encoded frames) through
+  Movie, which must take the streaming encoder, play on the player VM and
+  equal its whole-movie encode byte for byte (both timed, with the device
+  memory high-water mark of each); the CLI with `--chunk_frames 32` on a
+  10 s clip against the same call without it; `encode_movie_streaming`
+  called directly on a 20 s HGR clip (segments of 16 frames, ragged
+  batches) and with joint content on the 5 s quality clip, each against
+  its unsegmented encode; and the 10 s k=16 j=4 clip forced through the
+  streaming encoder at segments of 16 and 64 frames beside its
+  whole-movie run.
+From its second clip on, a mode's 10 s path passes the first clip's
+distance model to `Movie(dist=...)`.
 Kernel B launching on any path fails the run.
 
 A last, uncounted phase traces 1 s clips with torch.profiler (solo and a
@@ -212,28 +225,42 @@ def main():
     enc = ("chunk_start", "encode_body")
     yiq = ("chunk_start_yiq", "encode_body")
     totals = {name: 0 for name in KERNELS}
+    dists = {}  # (mode, colour model) -> the first clip's distance model
     with tempfile.TemporaryDirectory() as cache:
         os.environ["XDG_CACHE_HOME"] = cache
         for path, want, fn, args, kw in (
-                ("dhgr_10s_k8_j1", enc, run_movie, (dev, dhgr, 8, 1, 10), {}),
-                ("dhgr_10s_k16_j4", enc, run_movie, (dev, dhgr, 16, 4, 10),
-                 {}),
-                ("hgr_10s_k8_j1", enc, run_movie, (dev, hgr, 8, 1, 10), {}),
+                ("dhgr_10s_k8_j1", enc, run_movie,
+                 (dev, dists, dhgr, 8, 1, 10), {}),
+                ("dhgr_10s_k16_j4", enc, run_movie,
+                 (dev, dists, dhgr, 16, 4, 10), {}),
+                ("hgr_10s_k8_j1", enc, run_movie,
+                 (dev, dists, hgr, 8, 1, 10), {}),
                 ("lut_dhgr_ntsc", ("editdist_tile",), build_and_check_lut,
                  (dev,), {}),
                 ("bench_subop", ("subop_bench",), run_bench,
                  (dev, bench_subop, report), {}),
-                ("dhgr_2s_yiq", yiq, run_movie, (dev, dhgr, 8, 1, 2),
+                ("dhgr_2s_yiq", yiq, run_movie, (dev, dists, dhgr, 8, 1, 2),
                  dict(colour_model="yiq")),
-                ("hgr_2s_yiq", yiq, run_movie, (dev, hgr, 8, 1, 2),
+                ("hgr_2s_yiq", yiq, run_movie, (dev, dists, hgr, 8, 1, 2),
                  dict(colour_model="yiq")),
-                ("hgr_2s_mono", enc + ("lane_dist",), run_mono, (dev, hgr),
-                 {}),
+                ("hgr_2s_mono", enc + ("lane_dist",), run_mono,
+                 (dev, dists, hgr), {}),
                 ("batch_dhgr_b32_10s_k16_j4", enc, run_batch, (dev,), {}),
                 ("batch_cli_mixed", enc, run_cli_mixed, (dev,), {}),
                 ("quality_dhgr_5s_k16_j4",
                  enc + ("lane_dist", "encode_body_joint"), run_quality,
-                 (dev,), {})):
+                 (dev, dists), {}),
+                ("dhgr_60s_stream_k8_j1", enc, run_long_stream, (dev, dists),
+                 {}),
+                ("dhgr_10s_chunked_cli_k16_j4", enc, run_cli_chunked, (dev,),
+                 {}),
+                ("hgr_20s_stream_k8_j1", enc, run_stream_direct,
+                 (dev, dists, hgr, 8, 1, False), {}),
+                ("dhgr_5s_stream_joint_k16_j4",
+                 ("chunk_start", "encode_body_joint"), run_stream_direct,
+                 (dev, dists, dhgr, 16, 4, True), {}),
+                ("dhgr_10s_forced_stream_k16_j4", enc, run_forced_stream,
+                 (dev, dists), {})):
             _, launches = counted(path, want, fn, *args, **kw)
             for name, n in launches.items():
                 totals[name] += n
@@ -1265,32 +1292,45 @@ def build_lut(dev):
     return tables, codes, editdist.cost_matrix(Palette.NTSC, dev)
 
 
-def run_movie(dev, mode, k: int, j: int, seconds: int,
+def write_tone(path, seconds: int):
+    """A 440 Hz tone at 44.1 kHz, int16, as a WAV file."""
+    import numpy as np
+
+    from scipy.io import wavfile
+
+    n = 44100 * seconds
+    tone = np.sin(2 * np.pi * 440 * np.arange(n) / 44100) * 12000
+    wavfile.write(path, 44100, tone.astype(np.int16))
+
+
+def run_movie(dev, dists, mode, k: int, j: int, seconds: int,
               colour_model: str = "window"):
     """A clip of `seconds` at 30 fps with a 44.1 kHz tone, every 2nd frame
     encoded, through Movie(...).transcode on the card (14,700 Hz output
     audio), then the player VM: its final screens must equal the encoder's
-    model.  Returns the Movie."""
+    model.  dists: {(mode, colour model): distance model}; the first clip
+    of a pair builds its model and stores it there, later ones pass it to
+    Movie(dist=...).  Returns the Movie."""
     import numpy as np
     import torch
-
-    from scipy.io import wavfile
 
     from iivision_tpu_torch.movie import Movie
     from iivision_tpu_torch.video_mode import VideoMode
 
     rgb = gradient_clip(30 * seconds)
-    n = 44100 * seconds
-    tone = np.sin(2 * np.pi * 440 * np.arange(n) / 44100) * 12000
+    shared = dists.get((mode, colour_model))
     with tempfile.TemporaryDirectory() as tmp:
         # the clip's audio track: decoded, then resampled on the card
         wav = os.path.join(tmp, "clip.wav")
-        wavfile.write(wav, 44100, tone.astype(np.int16))
+        write_tone(wav, seconds)
         m = Movie(wav, frames_source=rgb, frame_rate=30.0,
                   every_n_video_frames=2, k=k, j=j, seed=0, device=dev,
-                  video_mode=mode, colour_model=colour_model,
+                  video_mode=mode, colour_model=colour_model, dist=shared,
                   dither_mode="mono" if colour_model == "mono"
                   else "ordered")
+        if shared is not None and m.dist is not shared:
+            raise AssertionError("Movie(dist=...) built another model")
+        dists[(mode, colour_model)] = m.dist
         if m.audio._rate != 44100:
             raise AssertionError("audio track not decoded at 44.1 kHz")
         out = os.path.join(tmp, "clip.a2m")
@@ -1304,17 +1344,18 @@ def run_movie(dev, mode, k: int, j: int, seconds: int,
     check_vm(data, m.plan.n_ops,
              np.asarray(m.audio.levels())[:m.plan.n_ops], finals,
              "%s %ds clip" % (mode.name, seconds))
-    print("movie %s %ds %s k=%d j=%d: n_ops=%d bytes=%d frames_s=%.3f "
-          "audio_s=%.3f tables_s=%.3f encode_s=%.3f emit_s=%.3f "
-          "total_s=%.3f realtime_x=%.3f" % (
-              mode.name, seconds, colour_model, k, j, stats["n_ops"],
-              len(data), stats["frames_s"], stats["audio_s"],
-              stats["tables_s"], stats["encode_s"], stats["emit_s"],
-              stats["total_s"], stats["realtime_x"]))
+    print("movie %s %ds %s k=%d j=%d dist=%s encoder=%s: n_ops=%d bytes=%d "
+          "frames_s=%.3f audio_s=%.3f tables_s=%.3f encode_s=%.3f "
+          "emit_s=%.3f total_s=%.3f realtime_x=%.3f" % (
+              mode.name, seconds, colour_model, k, j,
+              "built" if shared is None else "shared", m.encoder_used,
+              stats["n_ops"], len(data), stats["frames_s"],
+              stats["audio_s"], stats["tables_s"], stats["encode_s"],
+              stats["emit_s"], stats["total_s"], stats["realtime_x"]))
     return m
 
 
-def run_mono(dev, mode):
+def run_mono(dev, dists, mode):
     """A 2 s mono clip (k=8, j=1).  No mono table is shipped, so its Movie
     builds one on the card (kernel A's lane distance, HGR) into the
     empty temporary cache; 64 sampled rows of the table the clip encoded
@@ -1329,7 +1370,7 @@ def run_mono(dev, mode):
                                     distance._user_cache_dir())
     if os.path.exists(path):
         raise AssertionError("mono table cached before the clip: %s" % path)
-    m = run_movie(dev, mode, 8, 1, 2, colour_model="mono")
+    m = run_movie(dev, dists, mode, 8, 1, 2, colour_model="mono")
     if not os.path.exists(path):
         raise AssertionError("the mono clip saved no store-cost table")
     table = m.dist.store_cost16
@@ -1563,14 +1604,15 @@ def run_cli_mixed(dev):
                                   rows[0]["batch_encode_s"], wall))
 
 
-def run_quality(dev):
+def run_quality(dev, dists):
     """tests/test_quality_regression.py on the card: the pinned 5 s clip
     through the port's Movie at k=16 j=4 (seed 0), default and joint
     content, replayed and scored by the port's quality module.  Each mean
     error is held to its committed baseline row (<= 1.01x; final error
     <= 1.02x + 0.05), and joint must beat the default rule's baseline."""
-    from iivision_tpu_torch import encoder, quality
+    from iivision_tpu_torch import encoder, quality, render
     from iivision_tpu_torch.movie import Movie
+    from iivision_tpu_torch.palettes import Palette
     from iivision_tpu_torch.video_mode import VideoMode
 
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1581,7 +1623,8 @@ def run_quality(dev):
     for joint in (False, True):
         m = Movie(frames_source=rgb, audio_source=tone_levels(dev, 5.0),
                   every_n_video_frames=2, k=16, j=4, seed=0, device=dev,
-                  video_mode=VideoMode.DHGR, joint_content=joint)
+                  video_mode=VideoMode.DHGR, joint_content=joint,
+                  dist=dists[(VideoMode.DHGR, "window")])
         flat, _ = m.encode_ops()
         lanes, _ = encoder.prepare_targets(
             m.frames.targets_main, m.frames.targets_aux, VideoMode.DHGR,
@@ -1590,10 +1633,22 @@ def run_quality(dev):
                                           VideoMode.DHGR, m.dist)
         name = "dhgr_ntsc_k16_j4_seed0" + ("_joint" if joint else "")
         row = rows[name]
+        last = int(m.plan.step_frame.max())
+        psnr = quality.stream_psnr(
+            m.final_main, m.final_aux,
+            render.screen_to_rgb(m.frames.targets_main[last],
+                                 m.frames.targets_aux[last], VideoMode.DHGR,
+                                 Palette.NTSC),
+            VideoMode.DHGR, Palette.NTSC)
         print("quality %s: mean_error=%.4f (baseline %.4f) final_error=%.4f "
-              "(baseline %.4f) encode_s=%.3f" % (
+              "(baseline %.4f) stream_psnr_db=%.2f tables_s=%.3f "
+              "encode_s=%.3f" % (
                   name, rep.mean_error, row["mean_error"], rep.final_error,
-                  row["final_error"], m.timings["encode_s"]))
+                  row["final_error"], psnr, m.timings["tables_s"],
+                  m.timings["encode_s"]))
+        if not psnr > 10.0:
+            raise AssertionError("%s: final screen far from its target "
+                                 "(%.2f dB)" % (name, psnr))
         if rep.mean_error > row["mean_error"] * 1.01:
             raise AssertionError("%s mean error regressed" % name)
         if rep.final_error > row["final_error"] * 1.02 + 0.05:
@@ -1602,6 +1657,303 @@ def run_quality(dev):
     if not means[True] < rows["dhgr_ntsc_k16_j4_seed0"]["mean_error"]:
         raise AssertionError("joint content no longer beats the default "
                              "rule")
+
+
+def enc_launches():
+    return launch_count("chunk_start"), launch_count("encode_body")
+
+
+def timed_transcode(dev, dist, rgb, wav, mode, k: int, j: int, tmp, *,
+                    stream_min: int, stream_chunk_frames: int = 64):
+    """One Movie(...).transcode of an in-memory clip with
+    `movie.STREAM_MIN_FRAMES` set to `stream_min` for the call: above the
+    clip's encoded frames it runs the whole-movie encode, below them the
+    streaming one.  Returns (movie, stream bytes, stats, (device memory
+    high-water mark of the call, device memory held when it started) in
+    bytes, (chunk-start, body) launches)."""
+    import torch
+
+    from iivision_tpu_torch import movie as movie_mod
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    before = enc_launches()
+    kept = movie_mod.STREAM_MIN_FRAMES
+    movie_mod.STREAM_MIN_FRAMES = stream_min
+    try:
+        m = movie_mod.Movie(
+            wav, frames_source=rgb, frame_rate=30.0, every_n_video_frames=2,
+            k=k, j=j, seed=0, device=dev, video_mode=mode,
+            dist=dist, stream_chunk_frames=stream_chunk_frames)
+        out = os.path.join(tmp, "clip.a2m")
+        stats = m.transcode(out)
+    finally:
+        movie_mod.STREAM_MIN_FRAMES = kept
+    torch.cuda.synchronize()
+    with open(out, "rb") as f:
+        data = f.read()
+    launched = tuple(a - b for a, b in zip(enc_launches(), before))
+    return (m, data, stats, (torch.cuda.max_memory_allocated(), held),
+            launched)
+
+
+def print_transcode(what, m, stats, peak, launched):
+    print("%s encoder=%s: frames_s=%.3f tables_s=%.3f encode_s=%.3f "
+          "total_s=%.3f realtime_x=%.3f peak_device_MB=%.1f (%.1f over "
+          "what the process held before the call) chunk_starts=%d "
+          "bodies=%d" % (
+              what, m.encoder_used, stats["frames_s"], stats["tables_s"],
+              stats["encode_s"], stats["total_s"], stats["realtime_x"],
+              peak[0] / 1e6, (peak[0] - peak[1]) / 1e6, launched[0],
+              launched[1]))
+
+
+def run_long_stream(dev, dists, seconds: int = 60):
+    """A 60 s 280x192 clip (900 encoded frames, a 44.1 kHz tone) at k=8
+    j=1 through Movie, left to its own choice: it must take the streaming
+    encoder, launch the chunk-start and body kernels, play on the player
+    VM to the encoder's final screens, and equal the whole-movie encode of
+    the same clip with the same distance model.  Run whole, streaming,
+    streaming, whole; every run prints its line."""
+    import numpy as np
+
+    from iivision_tpu_torch import movie as movie_mod
+    from iivision_tpu_torch.video_mode import VideoMode
+
+    mode = VideoMode.DHGR
+    t0 = time.time()
+    rgb = synth_clip(seconds=float(seconds))
+    synth_s = time.time() - t0
+    ref = None
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "clip.wav")
+        write_tone(wav, seconds)
+        for stream_min in (1 << 30, movie_mod.STREAM_MIN_FRAMES,
+                           movie_mod.STREAM_MIN_FRAMES, 1 << 30):
+            m, data, stats, peak, launched = timed_transcode(
+                dev, dists[(mode, "window")], rgb, wav, mode, 8, 1, tmp,
+                stream_min=stream_min)
+            want = "whole" if stream_min == 1 << 30 else "streaming"
+            if m.encoder_used != want:
+                raise AssertionError("the %d s clip took the %s encoder, "
+                                     "want %s" % (seconds, m.encoder_used,
+                                                  want))
+            if min(launched) == 0:
+                raise AssertionError("the %s run launched %s chunk starts "
+                                     "and bodies" % (want, launched))
+            print_transcode("movie DHGR %ds k=8 j=1 n_enc=%d"
+                            % (seconds, len(rgb[::2])), m, stats, peak,
+                            launched)
+            if ref is None:
+                ref = data
+            elif data != ref:
+                raise AssertionError("the streaming encode of the %d s clip "
+                                     "differs from its whole-movie encode"
+                                     % seconds)
+            if want == "streaming":
+                check_vm(data, m.plan.n_ops,
+                         np.asarray(m.audio.levels())[:m.plan.n_ops],
+                         [("main", m.final_main), ("aux", m.final_aux)],
+                         "streamed %d s clip" % seconds)
+    print("long stream: synth_s=%.1f; streaming == whole-movie, %d bytes, "
+          "VM-valid" % (synth_s, len(ref)))
+    stream_split(dev, dists[(mode, "window")], rgb, m.plan, mode)
+
+
+class TimedBatches:
+    """An iterator over `gen` that adds up the time its consumer spends
+    waiting in next()."""
+
+    def __init__(self, gen):
+        self.gen, self.blocked_s = gen, 0.0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.time()
+        try:
+            return next(self.gen)
+        finally:
+            self.blocked_s += time.time() - t0
+
+
+def stream_split(dev, dist, rgb, plan, mode):
+    """What the streaming encode of a clip is made of, one run each:
+    ingest alone (the 4-thread generator, drained), the whole-movie
+    encode and the streaming encode on targets that are ready, and the
+    streaming encode on the live generator with the time its loop waits
+    for a batch."""
+    import numpy as np
+    import torch
+
+    from iivision_tpu_torch import encoder, frames
+    from iivision_tpu_torch.palettes import Palette
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    def ingest():
+        return list(frames.ingest_stream_array(rgb, mode, Palette.NTSC, 2))
+
+    def whole():
+        n = int(plan.step_frame.max()) + 1
+        lanes, bytes_tgt = encoder.prepare_targets(
+            np.concatenate([m for m, _ in parts])[:n],
+            np.concatenate([a for _, a in parts])[:n], mode, dev)
+        return encoder.encode_movie(dist, lanes, bytes_tgt, plan, mode,
+                                    seed=0)[0].cpu().numpy()
+
+    def stream(batches):
+        return encoder.encode_movie_streaming(dist, batches, plan, mode,
+                                              seed=0, chunk_frames=64)[0]
+
+    parts, ingest_s = wall(ingest)
+    ops, whole_s = wall(whole)
+    ops_r, ready_s = wall(lambda: stream(iter(parts)))
+    live = TimedBatches(frames.ingest_stream_array(rgb, mode, Palette.NTSC,
+                                                   2))
+    ops_l, live_s = wall(lambda: stream(live))
+    if not (np.array_equal(ops, ops_r) and np.array_equal(ops, ops_l)):
+        raise AssertionError("stream split: records differ")
+    print("stream split %s k=%d j=%d, %d frames: ingest_alone_s=%.3f "
+          "whole_on_ready_targets_s=%.3f streaming_on_ready_batches_s=%.3f "
+          "streaming_on_live_ingest_s=%.3f of which waiting_for_a_batch_s="
+          "%.3f" % (mode.name, plan.k, plan.j, len(rgb[::2]), ingest_s,
+                    whole_s, ready_s, live_s, live.blocked_s))
+
+
+def run_forced_stream(dev, dists):
+    """Where streaming pays on this card: the 10 s k=16 j=4 clip of
+    `run_movie` (150 encoded frames, under STREAM_MIN_FRAMES) as the
+    whole-movie run and forced through the streaming encoder at segments
+    of 16 and 64 frames, twice round; all byte-equal."""
+    from iivision_tpu_torch.video_mode import VideoMode
+
+    rgb = gradient_clip(300)
+    ref = None
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "clip.wav")
+        write_tone(wav, 10)
+        for stream_min, chunk in ((1 << 30, 64), (0, 16), (0, 64), (0, 64),
+                                  (0, 16), (1 << 30, 64)):
+            m, data, stats, peak, launched = timed_transcode(
+                dev, dists[(VideoMode.DHGR, "window")], rgb, wav,
+                VideoMode.DHGR, 16, 4, tmp, stream_min=stream_min,
+                stream_chunk_frames=chunk)
+            want = "streaming" if stream_min == 0 else "whole"
+            if m.encoder_used != want:
+                raise AssertionError("forced run took the %s encoder"
+                                     % m.encoder_used)
+            print_transcode("movie DHGR 10s k=16 j=4 segment=%s" % (
+                chunk if stream_min == 0 else "none"), m, stats, peak,
+                launched)
+            if ref is None:
+                ref = data
+            elif data != ref:
+                raise AssertionError("forced streaming (segments of %d) "
+                                     "differs from the whole-movie encode"
+                                     % chunk)
+
+
+def run_cli_chunked(dev):
+    """`cli.main` on one 10 s .npz clip at k=16 j=4 with `--chunk_frames
+    32`, byte-equal to the same call without the flag, and VM-valid."""
+    import numpy as np
+
+    from iivision_tpu_torch import cli
+
+    with tempfile.TemporaryDirectory() as tmp:
+        clip = os.path.join(tmp, "clip.npz")
+        np.savez(clip, frames=synth_clip(seconds=10.0), frame_rate=30.0)
+        datas, rows = [], []
+        for extra in ([], ["--chunk_frames", "32"]):
+            for name in os.listdir(tmp):
+                if ".iiv_" in name:  # the first call's target cache
+                    os.unlink(os.path.join(tmp, name))
+            out = os.path.join(tmp, "out%d.a2m" % len(datas))
+            stats = os.path.join(tmp, "stats%d.json" % len(datas))
+            before = enc_launches()
+            cli.main([clip, "--device", str(dev), "--output", out, "--k",
+                      "16", "--j", "4", "--stats_json", stats] + extra)
+            if min(a - b for a, b in zip(enc_launches(), before)) == 0:
+                raise AssertionError("cli %s launched no kernel" % extra)
+            with open(out, "rb") as f:
+                datas.append(f.read())
+            with open(stats) as f:
+                rows.append(json.load(f)[0])
+    check_vm(datas[1], rows[1]["n_ops"], None, [], "cli --chunk_frames 32")
+    if datas[0] != datas[1]:
+        raise AssertionError("cli --chunk_frames 32 differs from the "
+                             "unchunked call")
+    print("cli 10 s k=16 j=4: whole encode_s=%.3f total_s=%.3f; "
+          "--chunk_frames 32 encode_s=%.3f total_s=%.3f; %d bytes equal, "
+          "VM-valid" % (rows[0]["encode_s"], rows[0]["total_s"],
+                        rows[1]["encode_s"], rows[1]["total_s"],
+                        len(datas[0])))
+
+
+def run_stream_direct(dev, dists, mode, k: int, j: int, joint: bool):
+    """`encoder.encode_movie_streaming` called directly with segments of
+    16 frames and ragged batch sizes, against `encoder.encode_movie` on
+    the same targets: records, final screens and handed-back targets.
+    HGR: a 20 s gradient clip; joint: the 5 s quality clip (DHGR)."""
+    import numpy as np
+    import torch
+
+    from iivision_tpu_torch import encoder, frames
+    from iivision_tpu_torch.palettes import Palette
+
+    seconds = 5.0 if joint else 20.0
+    rgb = synth_clip(seconds=seconds) if joint \
+        else gradient_clip(int(30 * seconds))
+    fr = frames.ingest(rgb, mode, Palette.NTSC, every_n_video_frames=2,
+                       frame_rate=30.0)
+    plan, n_enc = encoder.plan_movie(
+        n_frames=len(rgb), n_audio_ticks=int(seconds * 14700),
+        input_frame_rate=30.0, ticks_per_second=14700.0,
+        every_n_video_frames=2, mode=mode, k=k, j=j)
+    dist = dists[(mode, "window")]
+
+    def batches():
+        pos, i, sizes = 0, 0, (7, 1, 33, 16, 5)
+        while pos < len(fr.targets_main):
+            b = sizes[i % len(sizes)]
+            yield (fr.targets_main[pos:pos + b],
+                   None if fr.targets_aux is None
+                   else fr.targets_aux[pos:pos + b])
+            pos, i = pos + b, i + 1
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ops_s, main_s, aux_s, tm, ta = encoder.encode_movie_streaming(
+        dist, batches(), plan, mode, seed=3, chunk_frames=16, joint=joint)
+    t1 = time.time()
+    lanes, bytes_tgt = encoder.prepare_targets(
+        fr.targets_main[:n_enc],
+        None if fr.targets_aux is None else fr.targets_aux[:n_enc], mode,
+        dev)
+    ops, main, aux = encoder.encode_movie(dist, lanes, bytes_tgt, plan, mode,
+                                          seed=3, joint=joint)
+    ops, main, aux = (t.cpu().numpy() for t in (ops, main, aux))
+    t2 = time.time()
+    for name, got, want in (("ops", ops_s, ops), ("main", main_s, main),
+                            ("aux", aux_s, aux),
+                            ("targets", tm, fr.targets_main[:len(tm)])):
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError("streaming %s differ from the whole-movie "
+                                 "encode (%s)" % (name, mode.name))
+    if (ta is None) != (fr.targets_aux is None):
+        raise AssertionError("streaming aux targets")
+    print("stream direct %s %gs k=%d j=%d joint=%s segment=16: steps=%d "
+          "n_enc=%d streaming_s=%.3f whole_s=%.3f; records and final "
+          "screens equal" % (mode.name, seconds, k, j, joint,
+                             len(plan.step_frame), n_enc, t1 - t0, t2 - t1))
 
 
 def profiled_kernels(prof):

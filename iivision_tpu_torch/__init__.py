@@ -1,15 +1,17 @@
 """ii-vision on PyTorch + CUDA: the DHGR and HGR transcode (window, yiq and
-mono colour models, default or joint content), solo or as a batch of
-movies, the quality scorer, LUT and store-cost generation and the sub-op
-microbenchmark for one NVIDIA H100, beside the JAX package `iivision_tpu`.
+mono colour models, default or joint content), solo (whole-movie, chunked
+or streaming) or as a batch of movies, the quality scorer and renderer,
+LUT and store-cost generation and the sub-op microbenchmark for one NVIDIA
+H100, beside the JAX package `iivision_tpu`.
 
 The JAX package is the reference this package is held against; this
 package imports nothing of it.  What it needs of the JAX package's
 host-side modules is copied here under the same names (`video_mode`,
-`palettes`, `colours`, `screen`, `plan`, `stream`, `frames`, `sim`, and
-helpers inside `ops`, `quality`, `audio`, `cli`).  Data files are not
-copied: they are read by path from `DATA_DIR`, the JAX package's `data/`
-directory (the shipped store-cost tables, the player's `iivision.dbg`).
+`palettes`, `colours`, `screen`, `plan`, `stream`, `frames`, `render`,
+`sim`, and helpers inside `ops`, `quality`, `audio`, `cli`).  Data files
+are not copied: they are read by path from `DATA_DIR`, the JAX package's
+`data/` directory (the shipped store-cost tables, the player's
+`iivision.dbg`).
 
 What runs through `jax` there is written here in torch:
 

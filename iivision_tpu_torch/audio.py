@@ -198,6 +198,14 @@ class StreamingDecimator:
         return self._emit(buf, self.start, n_out)
 
 
+def resample_polyphase(x: np.ndarray, ratio: int) -> np.ndarray:
+    """One-shot wrapper over StreamingDecimator (bit-identical to any
+    chunked run of the same signal)."""
+    d = StreamingDecimator(ratio)
+    head = d.feed(np.asarray(x, np.float32))
+    return np.concatenate([head, d.flush(len(x))])
+
+
 class Audio:
     """Audio stream encoder with its FFT resample on `device`.
 

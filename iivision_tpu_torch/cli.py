@@ -4,9 +4,10 @@ as one batch.
 
     python -m iivision_tpu_torch.cli clip.mp4 --device cuda
     python -m iivision_tpu_torch.cli a.mp4 b.mp4 --device cuda [--joint_content]
+    python -m iivision_tpu_torch.cli long.mp4 --device cuda --chunk_frames 512
 
-Flags the port does not run yet are refused with the ROADMAP.md item that
-will bring them; nothing falls back silently.
+A mesh of more than one card, which the port does not run yet, is refused
+with the ROADMAP.md item that will bring it; nothing falls back silently.
 """
 
 import argparse
@@ -42,8 +43,6 @@ def mesh_cards(args) -> int:
 # flag -> (test on the parsed args, ROADMAP.md item)
 _NOT_PORTED = [
     ("--mesh above one card", lambda a: mesh_cards(a) != 1, SHARDING_ITEM),
-    ("--chunk_frames", lambda a: a.chunk_frames is not None,
-     "Queue 1: 'chunked and streaming long-movie encoders'"),
 ]
 
 
@@ -97,7 +96,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "nominal colours), 'yiq' (NTSC composite) or "
                         "'mono' (dot-level Hamming).")
     p.add_argument("--chunk_frames", type=int, default=None,
-                   help="Not ported yet.")
+                   help="Encode one input in segments of this many "
+                        "encoded frames (bounded device memory for the "
+                        "targets; same output); default: whole-movie up "
+                        "to 1024 encoded frames, 512 past that.")
     p.add_argument("--mesh", default=None,
                    help="Cards to shard a batch over: 1, or 'auto' on a "
                         "one-card host (more is not ported yet).")
@@ -117,6 +119,9 @@ def main(args=None):
         # the mono colour model pairs with the 1-bit mono quantizer
         args.dither = "mono" if args.colour_model == "mono" else "ordered"
     if len(args.input) > 1:
+        if args.chunk_frames is not None:
+            parser.error("--chunk_frames applies to one input: a batch "
+                         "encodes whole movies in lockstep")
         return transcode_batch(args)
     from iivision_tpu_torch.movie import Movie
 
@@ -136,6 +141,7 @@ def main(args=None):
         j=args.j,
         seed=args.seed,
         frame_rate=args.frame_rate,
+        chunk_frames=args.chunk_frames,
         colour_model=args.colour_model,
         joint_content=args.joint_content,
     )

@@ -9,12 +9,16 @@ dithers, or the 1-bit mono dither at full dot resolution.  A per-movie
 .npz target cache beside the source, stamped with the source file's
 identity, is read and written in the JAX package's layout.  Reference
 bmp2dhr frame caches (`<video>/<MODE>/<PALETTE>/%08d.BIN/.AUX`) are
-ingestible directly.  Device ingest is `parallel/mesh.ingest_movies_batch`.
+ingestible directly.  `ingest_stream_array` is the producer of the
+streaming transcode: an in-memory source quantized batch by batch on a
+small thread pool.  Device ingest is `parallel/mesh.ingest_movies_batch`.
 """
 
+import functools
 import os
 import queue
 import threading
+from collections import deque
 from dataclasses import dataclass
 from typing import Iterator, Optional, Tuple
 
@@ -113,6 +117,12 @@ def _ffmpeg_frames(path: str):
     return gen(), float(num) / float(den)
 
 
+def resize_frame(rgb: np.ndarray) -> np.ndarray:
+    """Lanczos resize of one frame to the 140x192 DHGR pixel grid."""
+    return resize_host(np.asarray(rgb, dtype=np.uint8)[None], TARGET_H,
+                       TARGET_W)[0]
+
+
 def _quantize_batch(rgb: np.ndarray, mode: VideoMode, palette: Palette,
                     dither_mode: str):
     """Quantize a (B, 192, W, 3) uint8 batch on the host to (main, aux)
@@ -137,6 +147,14 @@ def _quantize_batch(rgb: np.ndarray, mode: VideoMode, palette: Palette,
     dots = dither.hgr_desired_dots(codes)
     return dither.hgr_bytes_to_memory(dither.hgr_dots_to_bytes(dots)).numpy(), \
         None
+
+
+def reference_cache_dir(video_path: str, mode: VideoMode,
+                        palette: Palette) -> str:
+    """The reference's frame-cache directory for a video:
+    `<video sans ext>/<MODE>/<PALETTE>`."""
+    return os.path.join(os.path.splitext(video_path)[0],
+                        mode.name, palette.name)
 
 
 def load_reference_cache(cache_dir: str, mode: VideoMode):
@@ -233,6 +251,72 @@ def _decode_worker(frames_iter, every_n: int, out_q: queue.Queue,
         put(("done", n_total))
     except BaseException as e:  # surface decode errors to the consumer
         put(("error", e))
+
+
+INGEST_WORKERS = 4  # resize+quantize threads (the C++ paths release the GIL)
+
+
+@functools.lru_cache(None)
+def _ingest_pool():
+    from concurrent.futures import ThreadPoolExecutor
+
+    return ThreadPoolExecutor(INGEST_WORKERS)
+
+
+def ingest_stream_array(source: np.ndarray, mode: VideoMode,
+                        palette: Palette, every_n_video_frames: int = 1,
+                        batch: Optional[int] = None):
+    """Generator of quantized (main, aux) uint8 target batches for an
+    in-memory (F, H, W, 3) source: the producer side of the streaming
+    transcode (`encoder.encode_movie_streaming`).
+
+    Resize and quantize fan out over a small thread pool (the C++ resize,
+    LUT quantize and packing all release the GIL) and are yielded strictly
+    in order through a bounded sliding window of futures, so host ingest
+    runs INGEST_WORKERS wide, overlaps the consumer's device work, and
+    keeps in-flight memory capped for hour-scale movies.  Short movies
+    shrink the default batch so all workers engage."""
+    require_mode(mode)
+    require_palette(palette)
+    sel = source[::every_n_video_frames]
+    if batch is not None and batch <= 0:
+        raise ValueError("batch must be positive, got %r" % (batch,))
+    b = batch or DECODE_BATCH
+    if batch is None and len(sel) <= 2 * INGEST_WORKERS * b:
+        # an explicit batch request is honoured as it is
+        b = max(8, -(-len(sel) // (2 * INGEST_WORKERS)))
+
+    def job(i, n=b):
+        # a few large calls, each of which drops the interpreter lock for
+        # its work: the consumer's thread launches a kernel every few tens
+        # of microseconds and loses time at every handover of the lock
+        chunk = np.ascontiguousarray(sel[i:i + n], dtype=np.uint8)
+        return _quantize_batch(resize_host(chunk, TARGET_H, TARGET_W), mode,
+                               palette, "ordered")
+
+    # build or load the C++ helpers and the fused LUT here, on the calling
+    # thread: the workers must not race to compile one library
+    if len(sel):
+        job(0, 1)
+    pool = _ingest_pool()
+
+    starts = iter(range(0, len(sel), b))
+    futs = deque()
+    try:
+        for _ in range(QUEUE_BATCHES + INGEST_WORKERS):
+            i = next(starts, None)
+            if i is None:
+                break
+            futs.append(pool.submit(job, i))
+        while futs:
+            out = futs.popleft().result()
+            i = next(starts, None)
+            if i is not None:
+                futs.append(pool.submit(job, i))
+            yield out
+    finally:
+        for f in futs:  # abandoned mid-stream: drop queued work
+            f.cancel()
 
 
 def ingest(source, mode: VideoMode, palette: Palette,

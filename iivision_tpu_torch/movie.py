@@ -2,9 +2,16 @@
 iivision_tpu/movie.py, solo path), DHGR or HGR, with the window, yiq or
 mono colour model and the default or joint content rule.
 
-Host ingest (`frames.ingest`: decode, C++ resize, quantize and pack), the
-opcode plan, op flattening and stream emission run on the host; the
-encode and the audio resample run on `device`.  The final screens are kept for playback verification.
+Host ingest (`frames.ingest`, or `frames.ingest_stream_array` for an
+in-memory source: C++ resize, quantize and pack), the opcode plan, op
+flattening and stream emission run on the host; the encode and the audio
+resample run on `device`.  `Movie` picks the encoder as the JAX package's
+does: an in-memory source with the ordered dither is ingested inside
+`encode_ops` and, past `STREAM_MIN_FRAMES` encoded frames, streamed
+through `encoder.encode_movie_streaming`; the rest run
+`encoder.encode_movie_chunked` when `chunk_frames` is given or past 1024
+encoded frames, else the whole-movie encode.  The final screens are kept
+for playback verification.
 """
 
 import time
@@ -18,6 +25,23 @@ from iivision_tpu_torch.ops import distance
 from iivision_tpu_torch.palettes import Palette, require_palette
 from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
 from iivision_tpu_torch.video_mode import VideoMode, require_mode
+
+
+# In-memory sources with more encoded frames than this take the streaming
+# encoder; the rest run one whole-movie encode.  The JAX package's value,
+# kept so that both packages pick the same encoder for the same input; the
+# output is identical either way.
+STREAM_MIN_FRAMES = 256
+
+
+def get_distance(mode: VideoMode, palette: Palette, model: str = "window",
+                 *, device):
+    """The encoder's distance model on `device` (store-cost table and
+    substitution costs; model 'yiq' or 'mono' for those bases).  One
+    model serves every movie of its mode, palette and colour model:
+    pass it as `Movie(dist=...)`."""
+    return distance.ComputedDistance(mode, palette, model,
+                                     device=require_device(device))
 
 
 class Movie:
@@ -38,8 +62,11 @@ class Movie:
             seed: Optional[int] = 0,
             frames_source=None,
             audio_source=None,
+            dist=None,
             frame_rate: Optional[float] = None,
+            chunk_frames: Optional[int] = None,
             colour_model: str = "window",
+            stream_chunk_frames: int = 64,
             joint_content: bool = False,
     ):
         self.device = require_device(device)
@@ -47,6 +74,10 @@ class Movie:
         self.max_bytes_out = max_bytes_out
         self.video_mode = require_mode(video_mode)
         self.palette = require_palette(palette)
+        # frames per segment of the chunked encoder (None: whole-movie up
+        # to 1024 encoded frames, 512 past that) and of the streaming one
+        self.chunk_frames = chunk_frames
+        self.stream_chunk_frames = stream_chunk_frames
         self.k = k
         self.j = j
         self.seed = seed
@@ -57,10 +88,23 @@ class Movie:
 
         t0 = time.time()
         source = frames_source if frames_source is not None else filename
-        self.frames = frames.ingest(
-            source, video_mode, palette,
-            every_n_video_frames=every_n_video_frames,
-            dither_mode=dither_mode, frame_rate=frame_rate)
+        # an in-memory source with the ordered dither is ingested inside
+        # encode_ops (`self.frames` is filled in there), so that the host's
+        # quantize can overlap the device's encode
+        self._stream_source = None
+        if (isinstance(source, np.ndarray) and dither_mode == "ordered"
+                and chunk_frames is None):
+            self._stream_source = source
+            self.frames = None
+            self._n_frames_total = len(source)
+            self._input_rate = float(frame_rate or 30.0)
+        else:
+            self.frames = frames.ingest(
+                source, video_mode, palette,
+                every_n_video_frames=every_n_video_frames,
+                dither_mode=dither_mode, frame_rate=frame_rate)
+            self._n_frames_total = self.frames.n_frames_total
+            self._input_rate = self.frames.input_frame_rate
         self.timings["frames_s"] = time.time() - t0
 
         t0 = time.time()
@@ -73,8 +117,7 @@ class Movie:
                     normalization=audio_normalization, device=self.device)
             except Exception:
                 # no audio track: silent stream covering the whole video
-                seconds = (self.frames.n_frames_total
-                           / self.frames.input_frame_rate)
+                seconds = self._n_frames_total / self._input_rate
                 self.audio = audio_mod.Audio(
                     data=np.zeros(int(seconds * audio_bitrate) + 1,
                                   np.float32),
@@ -83,9 +126,11 @@ class Movie:
         self.timings["audio_s"] = time.time() - t0
 
         t0 = time.time()
-        self.dist = distance.ComputedDistance(video_mode, palette,
-                                              colour_model,
-                                              device=self.device)
+        self.dist = dist if dist is not None else get_distance(
+            video_mode, palette, colour_model, device=self.device)
+        if self.dist.device != self.device:
+            raise ValueError("distance model on %s, movie on %s"
+                             % (self.dist.device, self.device))
         self.timings["tables_s"] = time.time() - t0
 
     def encode_ops(self):
@@ -93,33 +138,79 @@ class Movie:
         t0 = time.time()
         levels = np.asarray(self.audio.levels())
         plan, n_enc = encoder.plan_movie(
-            n_frames=self.frames.n_frames_total,
+            n_frames=self._n_frames_total,
             n_audio_ticks=len(levels),
-            input_frame_rate=self.frames.input_frame_rate,
+            input_frame_rate=self._input_rate,
             ticks_per_second=self.audio.sample_rate,
             every_n_video_frames=self.every_n_video_frames,
             mode=self.video_mode, k=self.k, j=self.j)
         self.timings["plan_s"] = time.time() - t0
+        self.plan = plan
+        self.encoder_used = None  # "streaming", "chunked" or "whole"
+        enc = dict(seed=self.seed, joint=self.joint_content)
+
+        if self._stream_source is not None:
+            t0 = time.time()
+            gen = frames.ingest_stream_array(
+                self._stream_source, self.video_mode, self.palette,
+                every_n_video_frames=self.every_n_video_frames)
+            if n_enc > STREAM_MIN_FRAMES:
+                # long movie: the host quantizes segment i + 1 while the
+                # device encodes segment i
+                ops, self.final_main, self.final_aux, tm, ta = \
+                    encoder.encode_movie_streaming(
+                        self.dist, gen, plan, self.video_mode,
+                        chunk_frames=self.stream_chunk_frames, **enc)
+                gen.close()
+                self._set_frames(tm, ta)
+                self.encoder_used = "streaming"
+                self.timings["encode_s"] = time.time() - t0
+                return encoder.flatten_ops(ops, plan), levels[:plan.n_ops]
+            # short movie: drain the generator, then encode below
+            parts = list(gen)
+            self._set_frames(
+                np.concatenate([m for m, _ in parts]),
+                np.concatenate([a for _, a in parts])
+                if self.video_mode == VideoMode.DHGR else None)
+            self.timings["frames_s"] += time.time() - t0
 
         n_use = max(n_enc, 1)
         if n_use > len(self.frames.targets_main):
             raise ValueError("plan needs %d encoded frames, ingest gave %d"
                              % (n_use, len(self.frames.targets_main)))
+        tgt_main = self.frames.targets_main[:n_use]
+        tgt_aux = (None if self.frames.targets_aux is None
+                   else self.frames.targets_aux[:n_use])
+        chunk = self.chunk_frames
+        if chunk is not None and chunk <= 0:
+            raise ValueError("chunk_frames must be positive, got %r"
+                             % (chunk,))
+        if chunk is None and n_enc > 1024:
+            chunk = 512  # segment long movies
         t0 = time.time()
-        aux = self.frames.targets_aux
-        lanes, bytes_tgt = encoder.prepare_targets(
-            self.frames.targets_main[:n_use],
-            None if aux is None else aux[:n_use], self.video_mode,
-            self.device)
-        ops, fin_main, fin_aux = encoder.encode_movie(
-            self.dist, lanes, bytes_tgt, plan, self.video_mode,
-            seed=self.seed, joint=self.joint_content)
-        flat = encoder.flatten_ops(ops.cpu().numpy(), plan)
-        self.final_main = fin_main.cpu().numpy()
-        self.final_aux = fin_aux.cpu().numpy()
+        if chunk:
+            ops, self.final_main, self.final_aux = \
+                encoder.encode_movie_chunked(
+                    self.dist, tgt_main, tgt_aux, plan, self.video_mode,
+                    chunk_frames=chunk, **enc)
+            self.encoder_used = "chunked"
+        else:
+            lanes, bytes_tgt = encoder.prepare_targets(
+                tgt_main, tgt_aux, self.video_mode, self.device)
+            ops, fin_main, fin_aux = encoder.encode_movie(
+                self.dist, lanes, bytes_tgt, plan, self.video_mode, **enc)
+            ops = ops.cpu().numpy()
+            self.final_main = fin_main.cpu().numpy()
+            self.final_aux = fin_aux.cpu().numpy()
+            self.encoder_used = "whole"
         self.timings["encode_s"] = time.time() - t0
-        self.plan = plan
-        return flat, levels[:plan.n_ops]
+        return encoder.flatten_ops(ops, plan), levels[:plan.n_ops]
+
+    def _set_frames(self, targets_main, targets_aux):
+        self.frames = frames.MovieFrames(
+            targets_main=targets_main, targets_aux=targets_aux,
+            n_frames_total=self._n_frames_total,
+            input_frame_rate=self._input_rate)
 
     def transcode(self, out_path: str) -> dict:
         """Encode to an .a2m file; returns timing stats."""

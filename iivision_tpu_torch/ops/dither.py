@@ -316,3 +316,20 @@ def hgr_dots_to_bytes(dots: torch.Tensor) -> torch.Tensor:
 def hgr_bytes_to_memory(by: torch.Tensor) -> torch.Tensor:
     """(..., 192, 40) screen bytes -> (..., 32, 256) main memory map."""
     return rows_to_memory(by)
+
+
+def frame_to_memory(rgb, mode: VideoMode, palette: Palette,
+                    dither: str = "ordered", *, device):
+    """One RGB frame (192, 140, 3) -> (main, aux | None) (32, 256) uint8
+    memory maps on `device`: the device quantizers for the ordered dither,
+    the host error diffusion (C++) for any other."""
+    if mode == VideoMode.DHGR:
+        if dither == "ordered":
+            codes = quantize_ordered(torch.as_tensor(rgb, device=device),
+                                     palette)
+        else:
+            codes = torch.as_tensor(
+                quantize_error_diffusion(np.asarray(rgb), palette,
+                                         kernel=dither), device=device)
+        return dhgr_codes_to_memory(codes)
+    return quantize_hgr(torch.as_tensor(rgb, device=device), palette), None

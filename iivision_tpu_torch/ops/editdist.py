@@ -22,7 +22,7 @@ it launches the kernel (csrc/editdist.cu) or raises.  Each wrapper counts
 its kernel launches in its `launches` attribute.
 
 The code strings, the cost matrix, the scalar oracle and the npz writer
-are numpy copies of the JAX module's (same names).
+and reader are numpy copies of the JAX module's (same names).
 """
 
 import ctypes
@@ -116,6 +116,17 @@ def save_tables(tables, mode: VideoMode, palette: Palette,
     os.makedirs(os.path.dirname(path), exist_ok=True)
     np.savez_compressed(path, edit_distance=tri.reshape(len(tables), n * n))
     return path
+
+
+def load_tables(mode: VideoMode, palette: Palette,
+                data_dir: Optional[str] = None) -> np.ndarray:
+    """Load and symmetrise a reference-layout npz (what `save_tables`
+    wrote): (n_lanes, 2^(2*MASKED_BITS)) uint16."""
+    n = 1 << spec_for_mode(mode).MASKED_BITS
+    dist = np.load(table_path(mode, palette, data_dir))["edit_distance"]
+    full = dist.reshape(len(dist), n, n)
+    full = full + np.transpose(full, (0, 2, 1))
+    return full.reshape(len(dist), n * n)
 
 
 def dp_distance_tile(a_codes: torch.Tensor, b_codes: torch.Tensor,

@@ -7,7 +7,8 @@ JAX module), and scores the screen at each encoded-frame boundary with the
 encoder's own perceptual lane distance: `distance.dist_lane_pairs`, which
 is kernel A's lane-distance entry on a card (window and mono models) or
 the yiq window sums.  It is the fidelity number that compares encoder
-settings (k, j, joint content) on equal footing.
+settings (k, j, joint content) on equal footing.  `stream_psnr` renders a
+screen (`render`, numpy) and gives its PSNR against a source frame.
 """
 
 from dataclasses import dataclass
@@ -104,3 +105,11 @@ def replay_frame_errors(flat_ops: np.ndarray, plan, lanes_tgt,
     return QualityReport(frame_errors=errors,
                          final_error=float(errors[-1]),
                          mean_error=float(errors.mean()))
+
+
+def stream_psnr(main, aux, source_rgb, mode: VideoMode, palette) -> float:
+    """PSNR of a rendered screen against the source frame (both 140x192)."""
+    from iivision_tpu_torch import render
+
+    return render.psnr(render.screen_to_rgb(main, aux, mode, palette),
+                       source_rgb)

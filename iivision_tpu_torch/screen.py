@@ -38,17 +38,22 @@ def y_to_base_addr(y: int, page: int = 0) -> int:
     return 8192 * (page + 1) + 1024 * c + 128 * b + 40 * a
 
 
-def _screen_holes() -> np.ndarray:
+def _screen_maps():
+    page = np.zeros((192, 40), dtype=np.uint8)
+    offset = np.zeros((192, 40), dtype=np.uint8)
     holes = np.full((32, 256), True, dtype=bool)
     for y in range(192):
-        base = y_to_base_addr(y)
-        holes[(base >> 8) - 32, (base & 0xFF):(base & 0xFF) + 40] = False
-    return holes
+        addr = y_to_base_addr(y) + np.arange(40)
+        page[y] = (addr >> 8) - 32
+        offset[y] = addr & 0xFF
+        holes[page[y], offset[y]] = False
+    return page, offset, holes
 
 
-# (32, 256) bool: page offsets that map to no screen byte (the 8 bytes that
-# pad each 120-byte half page to 128)
-SCREEN_HOLES = _screen_holes()
+# (192, 40) uint8: the page (0..31) and page offset of byte column x of
+# screen row y; (32, 256) bool: page offsets that map to no screen byte (the
+# 8 bytes that pad each 120-byte half page to 128)
+X_Y_TO_PAGE, X_Y_TO_OFFSET, SCREEN_HOLES = _screen_maps()
 
 
 class DHGR:

@@ -3,7 +3,7 @@ tables and functions (it imports nothing of the JAX package).  Each copy
 gives what the original gives, exactly: screen tables and specs, the plan,
 stream emission and opcode addresses, palettes and colour codes, the
 dither tables and host quantizers, resize, host ingest, audio levels, op
-replay, the yiq tables and the player VM."""
+replay, the yiq tables, the renderer and the player VM."""
 
 import os
 
@@ -17,6 +17,7 @@ from iivision_tpu import encoder as jenc
 from iivision_tpu import frames as jframes
 from iivision_tpu import palettes as jpalettes
 from iivision_tpu import quality as jquality
+from iivision_tpu import render as jrender
 from iivision_tpu import screen as jscreen
 from iivision_tpu.ops import distance as jdist
 from iivision_tpu.ops import dither as jdither
@@ -30,7 +31,7 @@ from iivision_tpu.stream.emit_fast import emit_stream_fast as j_emit
 from iivision_tpu.stream.opcodes import default_addresses as j_addresses
 from iivision_tpu.video_mode import VideoMode as JVideoMode
 from iivision_tpu_torch import audio, cli, encoder, frames, palettes, quality
-from iivision_tpu_torch import screen
+from iivision_tpu_torch import render, screen
 from iivision_tpu_torch.ops import distance, dither, editdist, resize, yiq
 from iivision_tpu_torch.palettes import Palette
 from iivision_tpu_torch.sim import PlayerVM
@@ -57,7 +58,9 @@ def test_enum_values():
 
 
 def test_screen_tables():
-    assert np.array_equal(screen.SCREEN_HOLES, jscreen.SCREEN_HOLES)
+    for name in ("SCREEN_HOLES", "X_Y_TO_PAGE", "X_Y_TO_OFFSET"):
+        got, want = getattr(screen, name), getattr(jscreen, name)
+        assert got.dtype == want.dtype and np.array_equal(got, want), name
     for page in (0, 1):
         assert [screen.y_to_base_addr(y, page) for y in range(192)] == \
             jscreen.Y_TO_BASE_ADDR[page]
@@ -316,3 +319,42 @@ def test_replay_ops_and_player_vm():
     for f in ("main", "aux", "duty"):
         assert np.array_equal(getattr(got, f), getattr(want, f)), f
     assert got.ok and got.n_ops == n
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_render(mode):
+    """Every function of the copied renderer on seeded screens (a batch of
+    two and a single screen): colour codes, the dot stream, and the
+    window, yiq and mono renders, each exactly the original's."""
+    rng = np.random.RandomState(11)
+    hi = 0x80 if mode == VideoMode.DHGR else 0x100
+    main = rng.randint(0, hi, (2, 32, 256)).astype(np.uint8)
+    aux = rng.randint(0, hi, (2, 32, 256)).astype(np.uint8)
+    for m, a in ((main, aux), (main[0], aux[0])):
+        if mode == VideoMode.DHGR:
+            assert np.array_equal(render._row_dots_dhgr(m, a),
+                                  jrender._row_dots_dhgr(m, a))
+            got = render.dhgr_screen_codes(m, a)
+            want = jrender.dhgr_screen_codes(m, a)
+        else:
+            assert np.array_equal(render._hgr_row_dots(m),
+                                  jrender._hgr_row_dots(m))
+            got, want = render.hgr_screen_codes(m), jrender.hgr_screen_codes(m)
+        assert got.shape == m.shape[:-2] + (192, 140)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+        assert np.array_equal(render._row_bits(m, a, mode),
+                              jrender._row_bits(m, a, jm(mode)))
+        for palette in PALETTES:
+            assert np.array_equal(
+                render.screen_to_rgb(m, a, mode, palette),
+                jrender.screen_to_rgb(m, a, jm(mode), jm(palette)))
+        got = render.screen_to_rgb_yiq(m, a, mode, Palette.NTSC)
+        assert got.shape == m.shape[:-2] + (192, 140, 3)
+        assert np.array_equal(got, jrender.screen_to_rgb_yiq(
+            m, a, jm(mode), JPalette.NTSC))
+        got = render.screen_to_rgb_mono(m, a, mode)
+        assert got.shape == m.shape[:-2] + (192, 560, 3)
+        assert np.array_equal(got, jrender.screen_to_rgb_mono(m, a, jm(mode)))
+    x = rng.randint(0, 256, (4, 5, 3))
+    y = rng.randint(0, 256, (4, 5, 3))
+    assert render.psnr(x, y) == jrender.psnr(x, y)

@@ -241,13 +241,17 @@ def test_offset_zero_companion_matches_host_oracle():
 
 
 def test_unported_mode_raises(capsys):
-    """The chunked long-movie encoder is still refused, naming its ROADMAP
-    item (joint content, once refused here, is ported)."""
+    """A mesh of more than one card is still refused, naming its ROADMAP
+    item; --chunk_frames (once refused here) is ported for one input and
+    refused for a batch, which encodes whole movies in lockstep."""
     with pytest.raises(SystemExit):
-        cli.main(["a.npy", "--joint_content", "--chunk_frames", "64",
-                  "--device", "cpu"])
+        cli.main(["a.npy", "--mesh", "2", "--device", "cpu"])
     err = capsys.readouterr().err
-    assert "--chunk_frames" in err and "'chunked and streaming" in err
+    assert "--mesh" in err and "ROADMAP.md" in err
+    with pytest.raises(SystemExit):
+        cli.main(["a.npy", "b.npy", "--joint_content", "--chunk_frames",
+                  "64", "--device", "cpu"])
+    assert "--chunk_frames applies to one input" in capsys.readouterr().err
 
 
 def test_distance_model_on_another_device_is_refused():

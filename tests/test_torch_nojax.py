@@ -1,7 +1,9 @@
 """iivision_tpu_torch needs neither JAX nor the JAX package: its entry
 points import, and tiny DHGR and HGR yiq encodes, a B=2 batch encode with
 joint content, a batch ingest, a replay score, a host-ingest Movie through
-the player VM, the CLI and the sub-op microbenchmark run, in a process
+the player VM (whole-movie and with `chunk_frames`), a streaming encode,
+the renderer, the CLI (with `--chunk_frames`) and the sub-op microbenchmark
+run, in a process
 where importing `jax`, `iivision_tpu` or the JAX benchmark `bench` fails.
 chip_smoke.py imports there too.  No port source (nor chip_smoke.py)
 imports any of them."""
@@ -39,7 +41,8 @@ import chip_smoke
 import iivision_tpu_torch
 import iivision_tpu_torch.cli
 import iivision_tpu_torch.make_tables
-from iivision_tpu_torch import audio, bench_subop, encoder, quality
+from iivision_tpu_torch import audio, bench_subop, encoder, frames, quality
+from iivision_tpu_torch import render
 from iivision_tpu_torch.movie import Movie
 from iivision_tpu_torch.ops import distance, dither, resize, yiq
 from iivision_tpu_torch.palettes import Palette
@@ -99,11 +102,31 @@ m = Movie(frames_source=chip_smoke.synth_clip(seconds=0.2), device="cpu",
 with tempfile.TemporaryDirectory() as tmp:
     out = os.path.join(tmp, "clip.a2m")
     stats = m.transcode(out)
-    res = PlayerVM().decode(open(out, "rb").read())
+    data = open(out, "rb").read()
+    res = PlayerVM().decode(data)
     assert res.ok and res.n_ops == stats["n_ops"] > 0
+    # the chunked encoder through Movie, the streaming one on the
+    # ingest generator, and the renderer on the final screen
+    mc = Movie(frames_source=chip_smoke.synth_clip(seconds=0.2), device="cpu",
+               audio_source=m.audio, every_n_video_frames=2,
+               video_mode=VideoMode.HGR, dist=m.dist, chunk_frames=1)
+    mc.transcode(out)
+    assert mc.encoder_used == "chunked" and open(out, "rb").read() == data
+    gen = frames.ingest_stream_array(chip_smoke.synth_clip(seconds=0.2),
+                                     VideoMode.HGR, Palette.NTSC, 2, batch=2)
+    ops_s, main_s, _, tm, ta = encoder.encode_movie_streaming(
+        m.dist, gen, m.plan, VideoMode.HGR, seed=0, chunk_frames=1)
+    assert np.array_equal(main_s, m.final_main) and ta is None
+    rgb = render.screen_to_rgb(main_s, None, VideoMode.HGR, Palette.NTSC)
+    assert rgb.shape == (192, 140, 3)
+    assert np.isfinite(quality.stream_psnr(
+        main_s, None, render.screen_to_rgb_yiq(tm[-1], None, VideoMode.HGR,
+                                               Palette.NTSC),
+        VideoMode.HGR, Palette.NTSC))
     clip_path = os.path.join(tmp, "clip.npy")
     np.save(clip_path, chip_smoke.synth_clip(seconds=0.2))
-    iivision_tpu_torch.cli.main([clip_path, "--device", "cpu"])
+    iivision_tpu_torch.cli.main([clip_path, "--device", "cpu",
+                                 "--chunk_frames", "2"])
     assert os.path.exists(os.path.join(tmp, "clip.a2m"))
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded

@@ -105,13 +105,11 @@ def test_resample_fft_matches_jax():
 @pytest.mark.parametrize("extra,flag", [
     (["--mesh", "2"], "--mesh"),
     (["b.npy", "--mesh", "4"], "--mesh"),
-    (["--chunk_frames", "64"], "--chunk_frames"),
-    (["b.npy", "--joint_content", "--chunk_frames", "64"], "--chunk_frames"),
 ])
 def test_cli_refuses_unported_flags(capsys, extra, flag):
-    """A mesh of more than one card and --chunk_frames are refused, solo
-    and batch, naming their ROADMAP item; several inputs and
-    --joint_content are ported."""
+    """A mesh of more than one card is refused, solo and batch, naming its
+    ROADMAP item; several inputs, --joint_content and --chunk_frames are
+    ported."""
     with pytest.raises(SystemExit) as e:
         cli.main(["a.npy"] + extra + ["--device", "cpu"])
     assert e.value.code == 2
