@@ -65,6 +65,23 @@ after it:
   its unsegmented encode; and the 10 s k=16 j=4 clip forced through the
   streaming encoder at segments of 16 and 64 frames beside its
   whole-movie run.
+- the delivery half, on a 10 s DHGR clip at k=16 j=4 and a 5 s HGR clip
+  at k=8 j=1 (280x192 source, 30 fps, every 2nd frame, a 440 Hz tone):
+  `cli.main --device cuda` writes the `.a2m` file; `verify_stream.main
+  --machine` passes it, and the unmodified player, assembled from
+  `data/player/main.s` and run cycle by cycle on `sim.machine65`, ends
+  with screens equal to the encoder's finals and speaker duties equal to
+  the audio levels; `server.build_handler` serves it over a loopback
+  socket, plain (bytes equal the file), from the middle through
+  `build_seeker` (plays to TERMINATED, every byte stored after the seek
+  point as in full playback) and through `build_retargeter` onto a
+  relocated player build (equal to the offline `retarget.retarget`, and
+  that build plays it to the same screens, duties and cycles);
+  `make_disk.build_disk` on the template disk boots through
+  `machine65.boot_disk` to the same screens (DHGR); and
+  `render_stream.stream_screens` ends on the same screens.  The g++
+  build of `sim/csrc/apple2_vm.cpp` and the player's assembly are timed
+  apart, before the two paths.
 From its second clip on, a mode's 10 s path passes the first clip's
 distance model to `Movie(dist=...)`.
 Kernel B launching on any path fails the run.
@@ -90,6 +107,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 GOLDEN_SHA = "57fdd52adf53d75101ed121d28d8a5389465c09f99d960ba6c47c20dbdb30fbc"
 
@@ -260,7 +278,13 @@ def main():
                  ("chunk_start", "encode_body_joint"), run_stream_direct,
                  (dev, dists, dhgr, 16, 4, True), {}),
                 ("dhgr_10s_forced_stream_k16_j4", enc, run_forced_stream,
-                 (dev, dists), {})):
+                 (dev, dists), {}),
+                ("delivery_dhgr_10s_k16_j4", enc, run_delivery,
+                 (dev, dhgr, 16, 4, 10), dict(boot=True)),
+                ("delivery_hgr_5s_k8_j1", enc, run_delivery,
+                 (dev, hgr, 8, 1, 5), dict(boot=False))):
+            if path == "delivery_dhgr_10s_k16_j4":
+                build_machine()
             _, launches = counted(path, want, fn, *args, **kw)
             for name, n in launches.items():
                 totals[name] += n
@@ -1954,6 +1978,333 @@ def run_stream_direct(dev, dists, mode, k: int, j: int, joint: bool):
           "n_enc=%d streaming_s=%.3f whole_s=%.3f; records and final "
           "screens equal" % (mode.name, seconds, k, j, joint,
                              len(plan.step_frame), n_enc, t1 - t0, t2 - t1))
+
+
+def build_machine():
+    """The delivery paths' one-off host costs, timed apart from the paths:
+    the g++ build of `sim/csrc/apple2_vm.cpp` and the assembly of the
+    vendored player (every label held against the shipped .dbg)."""
+    from iivision_tpu_torch.sim import asm65, machine65
+
+    t0 = time.time()
+    lib = machine65._build_library()
+    build_s = time.time() - t0
+    t0 = time.time()
+    asm = asm65.assemble_player()
+    labels = asm65.validate_against_dbg(asm)
+    print("build: %s g++ seconds=%.2f; player assembled in %.2f s, %d labels "
+          "equal to iivision.dbg" % (os.path.relpath(lib), build_s,
+                                     time.time() - t0, len(labels)))
+
+
+def fetch(handler) -> bytes:
+    """Serve one connection on 127.0.0.1, port 0, in a thread, and return
+    what a real socket reads until the server closes it."""
+    import socket
+    import socketserver
+    import threading
+
+    srv = socketserver.TCPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        chunks = []
+        with socket.create_connection(srv.server_address, timeout=30) as s:
+            while True:
+                buf = s.recv(1 << 16)
+                if not buf:
+                    break
+                chunks.append(buf)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+    return b"".join(chunks)
+
+
+def split_slow_path_pairs(duty_pairs, n_ops: int):
+    """The machine's speaker tick pairs without the slow path's: one pair
+    for the first recv, then 291 data ops, then per 2 KB frame two ACK
+    pairs and 292 data ops.  Returns the data ops' pairs."""
+    import numpy as np
+
+    from iivision_tpu_torch.stream import opcodes
+
+    data, i, remaining = [], 1, n_ops
+    per_frame = opcodes.OPS_FIRST_FRAME
+    while remaining > 0:
+        take = min(per_frame, remaining)
+        data.append(duty_pairs[i:i + take])
+        i += take + 2
+        remaining -= take
+        per_frame = opcodes.OPS_PER_FRAME
+    return np.concatenate(data)
+
+
+def expected_hardware_duty(duties):
+    """Nominal duty -> the duty the player's code gives: of the 32 tick
+    variants, op_tick_22 ticks 21 cycles apart and op_tick_40 39 (each
+    still takes 73 cycles)."""
+    import numpy as np
+
+    d = np.asarray(duties).copy()
+    d[d == 22] = 21
+    d[d == 40] = 39
+    return d
+
+
+def tail_store_model(data: bytes, from_byte: int):
+    """What the tick opcodes at or after `from_byte` store, bank by bank:
+    (model, mask) of shape (2, 32, 256).  Where the tail stored, full
+    playback's final memory holds the model (the last store wins)."""
+    import numpy as np
+
+    from iivision_tpu_torch.stream import retarget
+
+    pos, cell = [], []
+    bank = 0
+    for p, kind, key in retarget.walk(data):
+        if kind == "ack":
+            bank = int(key)
+        elif kind == "tick" and p >= from_byte:
+            pos.append(p)
+            cell.append((bank * 32 + key[1] - 32) * 256)
+    raw = np.frombuffer(data, np.uint8)
+    pos = np.asarray(pos, np.int64)
+    idx = (np.asarray(cell, np.int64)[:, None]
+           + raw[pos[:, None] + np.arange(3, 7)]).ravel()
+    model = np.zeros(2 * 32 * 256, np.uint8)
+    mask = np.zeros(2 * 32 * 256, bool)
+    model[idx] = np.repeat(raw[pos + 2], 4)  # in order: the last store wins
+    mask[idx] = True
+    return model.reshape(2, 32, 256), mask.reshape(2, 32, 256)
+
+
+def write_dbg(addrs, path):
+    """A cc65-style .dbg with the opcode labels of an address map (what
+    `server.build_retargeter` reads for a player build)."""
+    names = [("op_header", addrs.header), ("op_ack", addrs.ack),
+             ("op_terminate", addrs.terminate), ("op_nop", addrs.nop)]
+    names += [("op_tick_%d_page_%d" % k, v)
+              for k, v in sorted(addrs.tick.items())]
+    with open(path, "w") as f:
+        for i, (name, val) in enumerate(names):
+            f.write('sym\tid=%d,name="%s",addrsize=absolute,scope=0,'
+                    'def=1,val=0x%X,type=lab\n' % (i, name, val))
+
+
+def run_delivery(dev, mode, k: int, j: int, seconds: int, boot: bool):
+    """The delivery half on one clip (280x192, 30 fps, every 2nd frame, a
+    440 Hz tone): transcode on the card through `cli.main`, then verify
+    on the 6502 machine, serve (plain, seek, retarget), boot the disk
+    (`boot`) and render, each step one `delivery:` line with its host
+    seconds.  Any step that disagrees raises."""
+    import numpy as np
+    import torch
+
+    from iivision_tpu_torch import DATA_DIR, audio, cli, make_disk, quality
+    from iivision_tpu_torch import movie as movie_mod
+    from iivision_tpu_torch import render, render_stream, server
+    from iivision_tpu_torch import verify_stream
+    from iivision_tpu_torch.palettes import Palette
+    from iivision_tpu_torch.sim import asm65, machine65
+    from iivision_tpu_torch.stream import opcodes, retarget, seek
+    from iivision_tpu_torch.video_mode import VideoMode
+
+    what = "%s %ds k=%d j=%d" % (mode.name, seconds, k, j)
+    dhgr = mode == VideoMode.DHGR
+
+    def same_screens(got, want, name, pad_cell=False):
+        """Both banks of two results (HGR: the aux bank untouched);
+        pad_cell: `want` is the encoder's model, which the padding op's
+        cell (0, 0) is not part of."""
+        for bank in ("main", "aux") if dhgr else ("main",):
+            eq = getattr(got, bank) == np.asarray(
+                getattr(want, bank)).astype(np.uint8)
+            if pad_cell:
+                eq[0, 0] = True
+            if not eq.all():
+                raise AssertionError(
+                    "delivery %s: %s %s bank differs at %s"
+                    % (what, name, bank, np.argwhere(~eq)[:5]))
+        if not dhgr and got.aux.any():
+            raise AssertionError("delivery %s: %s touched the aux bank"
+                                 % (what, name))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. transcode on the card, through the CLI.  An .npz clip carries
+        # no audio track, so the Movie the CLI makes is given the tone's
+        # (decoded from a WAV and resampled on the card), and is kept for
+        # its final screens and audio levels.
+        clip = os.path.join(tmp, "clip.npz")
+        np.savez(clip, frames=synth_clip(seconds=float(seconds)),
+                 frame_rate=30.0)
+        wav = os.path.join(tmp, "clip.wav")
+        write_tone(wav, seconds)
+        made = []
+
+        class RecordedMovie(movie_mod.Movie):
+            def __init__(self, filename=None, **kw):
+                kw["audio_source"] = audio.Audio(wav, bitrate=14700,
+                                                 device=kw["device"])
+                super().__init__(filename, **kw)
+                made.append(self)
+
+        a2m = os.path.join(tmp, "clip.a2m")
+        stats_path = os.path.join(tmp, "stats.json")
+        original = movie_mod.Movie
+        movie_mod.Movie = RecordedMovie
+        t0 = time.time()
+        try:
+            cli.main([clip, "--device", str(dev), "--output", a2m,
+                      "--video_mode", mode.name, "--k", str(k), "--j",
+                      str(j), "--stats_json", stats_path])
+        finally:
+            movie_mod.Movie = original
+        torch.cuda.synchronize()
+        cli_s = time.time() - t0
+        m, = made
+        if m.device.type != "cuda":
+            raise AssertionError("the CLI's movie ran on %s" % m.device)
+        with open(stats_path) as f:
+            stats = json.load(f)[0]
+        with open(a2m, "rb") as f:
+            data = f.read()
+        n_ops = m.plan.n_ops
+        levels = np.asarray(m.audio.levels())[:n_ops]
+        print("delivery: %s transcode: n_ops=%d bytes=%d frames=%d "
+              "encode_s=%.3f total_s=%.3f realtime_x=%.3f cli_s=%.3f" % (
+                  what, n_ops, len(data), len(data) // 2048,
+                  stats["encode_s"], stats["total_s"], stats["realtime_x"],
+                  cli_s))
+
+        # 2. verify: the VM, then the real player on the 6502 machine
+        t0 = time.time()
+        if verify_stream.main([a2m, "--machine"]) != 0:
+            raise AssertionError("delivery %s: verify_stream --machine "
+                                 "failed" % what)
+        verify_s = time.time() - t0
+        t0 = time.time()
+        full = machine65.play_stream(data)
+        machine_s = time.time() - t0
+        if full.exit_reason != "TERMINATED":
+            raise AssertionError("delivery %s: machine exit %s at $%04X"
+                                 % (what, full.exit_reason, full.pc))
+        finals = types.SimpleNamespace(main=m.final_main, aux=m.final_aux)
+        same_screens(full, finals, "machine vs the encoder's finals",
+                     pad_cell=True)
+        duty = split_slow_path_pairs(full.duty_cycles, n_ops)
+        if not np.array_equal(duty,
+                              expected_hardware_duty(levels * 2 + 34)):
+            raise AssertionError("delivery %s: speaker duties differ from "
+                                 "the audio levels" % what)
+        if len(np.unique(levels)) < 8:
+            raise AssertionError("delivery %s: the tone gave %d audio "
+                                 "levels" % (what, len(np.unique(levels))))
+        print("delivery: %s verify: machine exit=%s cycles=%d n_recv=%d "
+              "screens equal the encoder's finals, %d duties equal the "
+              "audio levels (%d distinct); verify_stream_s=%.3f "
+              "machine_s=%.3f (%.4f s per stream second)" % (
+                  what, full.exit_reason, full.cycles, full.n_recv,
+                  len(duty), len(np.unique(levels)), verify_s, machine_s,
+                  machine_s / (n_ops / 14700.0)))
+
+        # 3. serve: plain, from the middle, and onto a relocated player
+        t0 = time.time()
+        if fetch(server.build_handler(a2m)) != data:
+            raise AssertionError("delivery %s: served bytes differ from "
+                                 "the file" % what)
+        plain_s = time.time() - t0
+
+        t0 = time.time()
+        at = seconds / 2.0
+        got = fetch(server.build_handler(
+            a2m, transform=server.build_seeker(at)))
+        point = seek.frame_at(seek.seek_index(data), at)
+        if got != seek.seek(data, point.frame) or point.frame < 2:
+            raise AssertionError("delivery %s: served seek stream differs "
+                                 "from seek.seek at frame %d"
+                                 % (what, point.frame))
+        part = machine65.play_stream(got)
+        if part.exit_reason != "TERMINATED":
+            raise AssertionError("delivery %s: seek stream exit %s"
+                                 % (what, part.exit_reason))
+        model, mask = tail_store_model(data, point.byte_offset)
+        seek_mem = np.stack([part.main, part.aux])
+        full_mem = np.stack([full.main, full.aux])
+        if not (np.array_equal(seek_mem[mask], model[mask])
+                and np.array_equal(seek_mem[mask], full_mem[mask])):
+            raise AssertionError("delivery %s: bytes stored after the seek "
+                                 "point differ from full playback" % what)
+        seek_s = time.time() - t0
+
+        t0 = time.time()
+        with open(asm65.PLAYER_SOURCE) as f:
+            moved_asm = asm65.Assembler(segments={
+                "LOWCODE": 0x0800, "HGR": 0x2000,
+                "CODE": 0x4100}).assemble(f.read())
+        old = opcodes.default_addresses()
+        new = opcodes.OpcodeAddresses.from_symbols(moved_asm.symbols)
+        if new.tick[(34, 40)] != old.tick[(34, 40)] + 0x100:
+            raise AssertionError("the relocated build did not move")
+        new_dbg = os.path.join(tmp, "relocated.dbg")
+        write_dbg(new, new_dbg)
+        got = fetch(server.build_handler(a2m, transform=server.build_retargeter(
+            new_dbg, [os.path.join(DATA_DIR, "iivision.dbg")])))
+        if got != retarget.retarget(data, old, new) or got == data:
+            raise AssertionError("delivery %s: served retargeted stream "
+                                 "differs from retarget.retarget" % what)
+        var = machine65.Apple2Player(assembly=moved_asm).run(got)
+        if var.exit_reason != "TERMINATED" or var.cycles != full.cycles \
+                or not np.array_equal(var.duty_cycles, full.duty_cycles):
+            raise AssertionError("delivery %s: relocated player exit=%s "
+                                 "cycles=%d (vendored %d)" % (
+                                     what, var.exit_reason, var.cycles,
+                                     full.cycles))
+        same_screens(var, full, "relocated player vs vendored")
+        print("delivery: %s serve: plain %d bytes equal (%.3f s); seek to "
+              "%.1f s = frame %d, TERMINATED, %d stored bytes equal full "
+              "playback (%.3f s); retarget onto CODE=$4100 equals offline, "
+              "relocated player TERMINATED with equal screens, duties and "
+              "cycles (%.3f s)" % (what, len(data), plain_s, at, point.frame,
+                                   int(mask.sum()), seek_s,
+                                   time.time() - t0))
+
+        # 4. boot the disk
+        if boot:
+            t0 = time.time()
+            with open(make_disk.TEMPLATE_DISK, "rb") as f:
+                disk = make_disk.build_disk(template=f.read()).to_po()
+            booted = machine65.boot_disk(disk, data)
+            if booted.exit_reason != "TERMINATED":
+                raise AssertionError("delivery %s: disk boot exit %s at "
+                                     "$%04X" % (what, booted.exit_reason,
+                                                booted.pc))
+            same_screens(booted, full, "disk boot vs direct load")
+            print("delivery: %s boot: %d-byte ProDOS image, loader and "
+                  "player TERMINATED, cycles=%d, screens equal (%.3f s)" % (
+                      what, len(disk), booted.cycles, time.time() - t0))
+
+        # 5. render
+        t0 = time.time()
+        states, vmode = render_stream.stream_screens(data, 10.0)
+        last = types.SimpleNamespace(main=states[-1, 0], aux=states[-1, 1])
+        same_screens(last, full, "last snapshot vs machine")
+        same_screens(last, finals, "last snapshot vs the encoder's finals",
+                     pad_cell=True)
+        frame = int(m.plan.step_frame.max())
+        psnr = quality.stream_psnr(
+            states[-1, 0], states[-1, 1] if dhgr else None,
+            render.screen_to_rgb(
+                m.frames.targets_main[frame],
+                m.frames.targets_aux[frame] if dhgr else None, mode,
+                Palette.NTSC), mode, Palette.NTSC)
+        if vmode != mode.value or not np.isfinite(psnr):
+            raise AssertionError("delivery %s: render mode %d psnr %.2f"
+                                 % (what, vmode, psnr))
+        print("delivery: %s render: %d snapshots at 10 fps, the last equals "
+              "the encoder's finals, stream_psnr_db=%.2f (%.3f s)" % (
+                  what, len(states), psnr, time.time() - t0))
 
 
 def profiled_kernels(prof):

@@ -2,16 +2,21 @@
 mono colour models, default or joint content), solo (whole-movie, chunked
 or streaming) or as a batch of movies, the quality scorer and renderer,
 LUT and store-cost generation and the sub-op microbenchmark for one NVIDIA
-H100, beside the JAX package `iivision_tpu`.
+H100, and the delivery of the streams it writes (the TCP server, stream
+retargeting and seeking, verification on the 6502 machine, rendering, the
+boot disk), beside the JAX package `iivision_tpu`.
 
 The JAX package is the reference this package is held against; this
 package imports nothing of it.  What it needs of the JAX package's
 host-side modules is copied here under the same names (`video_mode`,
-`palettes`, `colours`, `screen`, `plan`, `stream`, `frames`, `render`,
-`sim`, and helpers inside `ops`, `quality`, `audio`, `cli`).  Data files
-are not copied: they are read by path from `DATA_DIR`, the JAX package's
-`data/` directory (the shipped store-cost tables, the player's
-`iivision.dbg`).
+`palettes`, `colours`, `screen`, `plan`, `stream` (opcodes, framing,
+`retarget`, `seek`), `frames`, `render`, `sim` (the player VM, the 6502
+assembler `asm65` and machine `machine65`), `server`, `verify_stream`,
+`render_stream`, `prodos`, `make_disk`, and helpers inside `ops`,
+`quality`, `audio`, `cli`).  Data files are not copied: they are read by
+path from `DATA_DIR`, the JAX package's `data/` directory (the shipped
+store-cost tables, the player's `iivision.dbg`, its source
+`player/main.s` and the template disk `player/prodos_template.dsk`).
 
 What runs through `jax` there is written here in torch:
 
@@ -48,7 +53,7 @@ import torch
 __version__ = "0.1.0"
 
 # the JAX package's data directory, read by path (never imported): shipped
-# store-cost tables and the player's symbol file
+# store-cost tables, the player's symbol file and source, the template disk
 DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "iivision_tpu", "data")
 

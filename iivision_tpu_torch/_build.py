@@ -8,11 +8,13 @@ sources run at once, then one link makes the shared library:
          -Xcompiler -fPIC -Xptxas -v -c csrc/<name>.cu -o <name>.o
     nvcc -shared -o _build/libiiv_kernels-<hash>.so *.o
 
-The library lands in `iivision_tpu_torch/_build/`, named by a hash of the
-sources (headers `csrc/*.cuh` included) and flags, so an edited kernel
-never loads a stale binary; ptxas's per-kernel register and shared-memory
-report is kept beside it as `<name>.log`.  The build runs at first use (a
-few seconds), never at import.  A failed build raises.
+The library lands in `iivision_tpu_torch/_build/` (or, where the package
+directory is not writable, in `~/.cache/iivision_tpu_torch/native/`, see
+`sim/_build.py`), named by a hash of the sources (headers `csrc/*.cuh`
+included) and flags, so an edited kernel never loads a stale binary;
+ptxas's per-kernel register and shared-memory report is kept beside it as
+`<name>.log`.  The build runs at first use (a few seconds), never at
+import.  A failed build raises.
 """
 
 import ctypes
@@ -24,6 +26,8 @@ import shutil
 import subprocess
 import tempfile
 import time
+
+from iivision_tpu_torch.sim._build import writable_build_dir
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -70,11 +74,18 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
+    """Where this source hash's library is, or is to be built: in
+    BUILD_DIR if it is there already or BUILD_DIR is writable, else under
+    the user's cache directory."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources() + headers():
         with open(src, "rb") as f:
             h.update(os.path.basename(src).encode() + b"\0" + f.read())
-    return os.path.join(BUILD_DIR, "libiiv_kernels-%s.so" % h.hexdigest()[:16])
+    fname = "libiiv_kernels-%s.so" % h.hexdigest()[:16]
+    in_package = os.path.join(BUILD_DIR, fname)
+    if os.path.exists(in_package):
+        return in_package
+    return os.path.join(writable_build_dir(BUILD_DIR), fname)
 
 
 def build() -> dict:
@@ -87,9 +98,8 @@ def build() -> dict:
     if os.path.exists(out):
         log = open(log_path).read() if os.path.exists(log_path) else ""
         return dict(path=out, seconds=0.0, built=False, log=log)
-    os.makedirs(BUILD_DIR, exist_ok=True)
     t0 = time.time()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(out)) as tmp:
         nvcc = _nvcc()
         objs = [os.path.join(tmp, os.path.basename(src)[:-3] + ".o")
                 for src in sources()]

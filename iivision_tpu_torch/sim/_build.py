@@ -4,8 +4,12 @@ iivision_tpu/sim/_build.py).
 Each source under `sim/csrc/` compiles at first use, never at import, into
 `iivision_tpu_torch/_build/` (gitignored), named by a hash of the source,
 the flags and the host's CPU features, so an edited source or another CPU
-never loads a stale binary.  A build lands in a temp file and is renamed
-into place, so concurrent processes never load a half-written library.
+never loads a stale binary.  Where the package directory is not writable
+(a wheel installed into a read-only site-packages) the build lands in
+`~/.cache/iivision_tpu_torch/native/` instead (`XDG_CACHE_HOME` is
+honoured): a second place to build in, under the same hashed names.  A
+build lands in a temp file and is renamed into place, so concurrent
+processes never load a half-written library.  A failed build raises.
 """
 
 import hashlib
@@ -19,6 +23,27 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "_build")
 _FAST_FLAGS = ["-O3", "-march=native", "-funroll-loops"]
 _BASE_FLAGS = ["-O3"]
+
+
+def cache_dir() -> str:
+    """Where builds go when the package directory is not writable."""
+    root = os.environ.get("XDG_CACHE_HOME",
+                          os.path.join(os.path.expanduser("~"), ".cache"))
+    return os.path.join(root, "iivision_tpu_torch", "native")
+
+
+def writable_build_dir(preferred: str) -> str:
+    """`preferred` (created if it can be) when it is writable, else
+    `cache_dir()` (created)."""
+    try:
+        os.makedirs(preferred, exist_ok=True)
+    except OSError:
+        pass
+    if os.path.isdir(preferred) and os.access(preferred, os.W_OK):
+        return preferred
+    fallback = cache_dir()
+    os.makedirs(fallback, exist_ok=True)
+    return fallback
 
 
 def host_tag() -> str:
@@ -57,15 +82,18 @@ def build_so(name: str, native_isa: bool = False) -> str:
     src = os.path.join(CSRC_DIR, name + ".cpp")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    build_dir = writable_build_dir(BUILD_DIR)
     last_err = None
     for flags in ([_FAST_FLAGS, _BASE_FLAGS] if native_isa
                   else [_BASE_FLAGS]):
         fhash = hashlib.sha256(" ".join(flags).encode()).hexdigest()[:8]
-        out = os.path.join(BUILD_DIR, "lib%s-%s-%s-%s.so"
-                           % (name, digest, fhash, host_tag()))
-        if os.path.exists(out):
-            return out
+        fname = "lib%s-%s-%s-%s.so" % (name, digest, fhash, host_tag())
+        # a library already in the package directory is used where it lies
+        for found in (os.path.join(BUILD_DIR, fname),
+                      os.path.join(build_dir, fname)):
+            if os.path.exists(found):
+                return found
+        out = os.path.join(build_dir, fname)
         try:
             _compile(src, out, flags)
             return out

@@ -44,6 +44,11 @@ class DecodeResult:
     aux: np.ndarray  # (32, 256) uint8 final aux screen memory
     duty: np.ndarray  # (n_ops,) int32 speaker duty cycles
 
+    @property
+    def playback_seconds(self) -> float:
+        """Wall-clock playback duration at the nominal 1.0227 MHz clock."""
+        return self.cycles / (1024 * 1024)
+
 
 class PlayerVM:
     """Native .a2m decoder bound to a specific player binary's address

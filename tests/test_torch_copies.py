@@ -3,7 +3,8 @@ tables and functions (it imports nothing of the JAX package).  Each copy
 gives what the original gives, exactly: screen tables and specs, the plan,
 stream emission and opcode addresses, palettes and colour codes, the
 dither tables and host quantizers, resize, host ingest, audio levels, op
-replay, the yiq tables, the renderer and the player VM."""
+replay, the yiq tables, the renderer and the player VM; and each native
+C++ source under `sim/csrc/` is the original byte for byte."""
 
 import os
 
@@ -358,3 +359,16 @@ def test_render(mode):
     x = rng.randint(0, 256, (4, 5, 3))
     y = rng.randint(0, 256, (4, 5, 3))
     assert render.psnr(x, y) == jrender.psnr(x, y)
+
+
+@pytest.mark.parametrize("name", ["apple2_vm", "player_vm", "dither",
+                                  "ingest_fast", "resize_fast"])
+def test_native_sources_are_the_originals(name):
+    """The port builds its own copy of each C++ source; the copy equals
+    the original byte for byte."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = [os.path.join(repo, pkg, "sim", "csrc", name + ".cpp")
+             for pkg in ("iivision_tpu_torch", "iivision_tpu")]
+    with open(paths[0], "rb") as f, open(paths[1], "rb") as g:
+        got, want = f.read(), g.read()
+    assert got == want and len(got) > 1000

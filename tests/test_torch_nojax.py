@@ -2,8 +2,10 @@
 points import, and tiny DHGR and HGR yiq encodes, a B=2 batch encode with
 joint content, a batch ingest, a replay score, a host-ingest Movie through
 the player VM (whole-movie and with `chunk_frames`), a streaming encode,
-the renderer, the CLI (with `--chunk_frames`) and the sub-op microbenchmark
-run, in a process
+the renderer, the CLI (with `--chunk_frames`), the sub-op microbenchmark
+and the delivery half (framing, retarget, seek, the server over a loopback
+socket, `verify_stream --machine` on the assembled 6502 player, the disk
+boot and `render_stream`) run, in a process
 where importing `jax`, `iivision_tpu` or the JAX benchmark `bench` fails.
 chip_smoke.py imports there too.  No port source (nor chip_smoke.py)
 imports any of them."""
@@ -128,6 +130,66 @@ with tempfile.TemporaryDirectory() as tmp:
     iivision_tpu_torch.cli.main([clip_path, "--device", "cpu",
                                  "--chunk_frames", "2"])
     assert os.path.exists(os.path.join(tmp, "clip.a2m"))
+
+    # the delivery half, on the HGR clip's stream and on a framed DHGR one
+    import socket
+    import socketserver
+    import threading
+
+    from iivision_tpu_torch import make_disk, prodos, render_stream, server
+    from iivision_tpu_torch import verify_stream
+    from iivision_tpu_torch.sim import asm65, machine65
+    from iivision_tpu_torch.stream import framing, opcodes, retarget, seek
+
+    assert verify_stream.main([out, "--machine"]) == 0
+    states, vmode = render_stream.stream_screens(data, 10.0)
+    assert vmode == 0 and np.array_equal(states[-1, 0], res.main)
+    framer = framing.StreamFramer(VideoMode.DHGR)
+    tiny = b"".join(framer.emit_stream(iter(
+        [opcodes.Header(VideoMode.DHGR)]
+        + [opcodes.Tick(34, 32 + i % 32, i % 128, (0, 1, 2, 3))
+           for i in range(900)])))
+    assert len(seek.seek_index(tiny)) == len(tiny) // 2048 == 4
+    relocated = asm65.Assembler(segments={
+        "LOWCODE": 0x0800, "HGR": 0x2000, "CODE": 0x4100}).assemble(
+            open(asm65.PLAYER_SOURCE).read())
+    new = opcodes.OpcodeAddresses.from_symbols(relocated.symbols)
+    moved = retarget.retarget(tiny, None, new)
+    assert retarget.identify(moved, [("old", opcodes.default_addresses()),
+                                     ("new", new)]) == "new"
+    tiny_path = os.path.join(tmp, "tiny.a2m")
+    with open(tiny_path, "wb") as f:
+        f.write(tiny)
+    srv = socketserver.TCPServer(
+        ("127.0.0.1", 0),
+        server.build_handler(tiny_path, transform=server.build_seeker(0.03)))
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        got = b""
+        with socket.create_connection(srv.server_address, timeout=10) as s:
+            while True:
+                buf = s.recv(65536)
+                if not buf:
+                    break
+                got += buf
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=5)
+    assert got == seek.seek(tiny, 1)
+    base = machine65.play_stream(tiny)
+    assert machine65.play_stream(got).exit_reason == "TERMINATED"
+    var = machine65.Apple2Player(assembly=relocated).run(moved)
+    assert var.exit_reason == "TERMINATED" and var.cycles == base.cycles
+    assert np.array_equal(var.main, base.main)
+    with open(make_disk.TEMPLATE_DISK, "rb") as f:
+        disk = make_disk.build_disk(template=f.read()).to_po()
+    assert prodos.ProDOSVolume.from_bytes(disk).read_file("IIVISION") == \
+        make_disk.player_binary()
+    booted = machine65.boot_disk(disk, tiny)
+    assert booted.exit_reason == "TERMINATED"
+    assert np.array_equal(booted.aux, base.aux)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("no-jax ok", plan.n_ops)
