@@ -37,7 +37,9 @@ after it:
 
 - 10 s DHGR clips at (k=8, j=1) and (k=16, j=4), and a 10 s HGR clip at
   (k=8, j=1), through Movie.transcode and the player VM;
-- the full DHGR NTSC LUT (make_tables' path);
+- the full DHGR NTSC LUT (make_tables' path), then its first 1024 rows
+  per lane through `build_tables_sharded` over (cuda:0, cuda:0), equal to
+  the full LUT's rows;
 - the sub-op microbenchmark's T sweep (bench_subop.run);
 - 2 s clips in the yiq colour model (DHGR and HGR: the chunk-start
   kernel's yiq instantiation) and the mono model (HGR); the mono clip
@@ -47,8 +49,13 @@ after it:
   each) through ingest_movies_batch, encode_movies_batch at k=16 j=4,
   fetch_ops_compact and emit; every stream through the player VM, and
   movies 0 and 31 byte-equal to their solo encodes;
-- the CLI's batch mode on three .npz clips of 10, 6 and 3 s: every stream
-  plays at its own length, and the shortest equals its padded solo encode;
+- the same batch sharded over the mesh (cuda:0, cuda:0): two shards of 16
+  movies, each ingested, encoded and fetched (`fetch_ops_parallel`) in a
+  host thread and a CUDA stream of its own; every stream and final screen
+  byte-equal to the unsharded batch's;
+- the CLI's batch mode on three .npz clips of 10, 6 and 3 s, with `--mesh
+  auto` (one card: unsharded): every stream plays at its own length, and
+  the shortest equals its padded solo encode;
 - the 5 s quality clip of tests/test_quality_regression.py at k=16 j=4,
   with and without joint content (the body kernel's joint
   instantiation), replayed and scored on the card: each mean error within
@@ -82,8 +89,15 @@ after it:
   `render_stream.stream_screens` ends on the same screens.  The g++
   build of `sim/csrc/apple2_vm.cpp` and the player's assembly are timed
   apart, before the two paths.
+- the host oracle: deterministic (seed None) encodes on the card - 1 s
+  DHGR at k=8 j=1, 1 s HGR at k=4 j=3, 0.25 s DHGR joint at k=16 j=4 -
+  equal op for op, with their final screens, to `encoder_host`'s
+  `encode_movie_host` and a `HostEncoder` replay.
 From its second clip on, a mode's 10 s path passes the first clip's
-distance model to `Movie(dist=...)`.
+distance model to `Movie(dist=...)`.  Every whole-movie clip, the batch
+and the mesh batch print a `roofline[...]` line (`roofline.report` on the
+card's peaks) and fail unless its modelled chunk starts and bodies equal
+the launches counted on the path.
 Kernel B launching on any path fails the run.
 
 A last, uncounted phase traces 1 s clips with torch.profiler (solo and a
@@ -110,13 +124,6 @@ import time
 import types
 
 GOLDEN_SHA = "57fdd52adf53d75101ed121d28d8a5389465c09f99d960ba6c47c20dbdb30fbc"
-
-# H100 SXM peaks: HBM bytes/s and float32 outside the tensor cores (NVIDIA's
-# data sheet), and int32 for the integer kernels (the chunk-start diff):
-# 64 INT32 lanes per SM x 132 SMs x 1.98 GHz
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 # kernel -> (wrapper module, wrapper name, the wrapper's launch counter,
 # source, the TPU or JAX function it replaces)
@@ -244,6 +251,7 @@ def main():
     yiq = ("chunk_start_yiq", "encode_body")
     totals = {name: 0 for name in KERNELS}
     dists = {}  # (mode, colour model) -> the first clip's distance model
+    results = {}  # path -> what it returned, for the path after it
     with tempfile.TemporaryDirectory() as cache:
         os.environ["XDG_CACHE_HOME"] = cache
         for path, want, fn, args, kw in (
@@ -255,6 +263,9 @@ def main():
                  (dev, dists, hgr, 8, 1, 10), {}),
                 ("lut_dhgr_ntsc", ("editdist_tile",), build_and_check_lut,
                  (dev,), {}),
+                ("lut_dhgr_ntsc_sharded", ("editdist_tile",),
+                 lambda: run_lut_sharded(dev, results.pop("lut_dhgr_ntsc")),
+                 (), {}),
                 ("bench_subop", ("subop_bench",), run_bench,
                  (dev, bench_subop, report), {}),
                 ("dhgr_2s_yiq", yiq, run_movie, (dev, dists, dhgr, 8, 1, 2),
@@ -264,6 +275,9 @@ def main():
                 ("hgr_2s_mono", enc + ("lane_dist",), run_mono,
                  (dev, dists, hgr), {}),
                 ("batch_dhgr_b32_10s_k16_j4", enc, run_batch, (dev,), {}),
+                ("batch_dhgr_b32_10s_k16_j4_mesh2", enc,
+                 lambda: run_batch_mesh(
+                     dev, results.pop("batch_dhgr_b32_10s_k16_j4")), (), {}),
                 ("batch_cli_mixed", enc, run_cli_mixed, (dev,), {}),
                 ("quality_dhgr_5s_k16_j4",
                  enc + ("lane_dist", "encode_body_joint"), run_quality,
@@ -282,10 +296,16 @@ def main():
                 ("delivery_dhgr_10s_k16_j4", enc, run_delivery,
                  (dev, dhgr, 16, 4, 10), dict(boot=True)),
                 ("delivery_hgr_5s_k8_j1", enc, run_delivery,
-                 (dev, hgr, 8, 1, 5), dict(boot=False))):
+                 (dev, hgr, 8, 1, 5), dict(boot=False)),
+                *((path, ("chunk_start", "encode_body_joint" if joint
+                          else "encode_body"), run_host_oracle,
+                   (dev, m, k, j, sec, joint), {})
+                  for path, m, k, j, sec, joint in ORACLE_CASES)):
             if path == "delivery_dhgr_10s_k16_j4":
                 build_machine()
-            _, launches = counted(path, want, fn, *args, **kw)
+            out, launches = counted(path, want, fn, *args, **kw)
+            if path in ("lut_dhgr_ntsc", "batch_dhgr_b32_10s_k16_j4"):
+                results[path] = out  # the next path's input
             for name, n in launches.items():
                 totals[name] += n
         del os.environ["XDG_CACHE_HOME"]
@@ -312,13 +332,15 @@ def main():
 
 
 def bound(nbytes: float, ops: float = 0.0, int_ops: float = 0.0) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the HBM rate and the operations over the card's rate for their type
-    (`ops` float32 outside the tensor cores, `int_ops` int32)."""
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / FP32_OPS_PER_S + int_ops / INT32_OPS_PER_S
-    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations")
+    """The least time card 0 could take: the larger of the bytes over the
+    HBM rate and the operations over the card's rate for their type (`ops`
+    float32 outside the tensor cores, `int_ops` int32), on the peaks of
+    `roofline.CARD_PEAKS` (a card not in that table fails the run)."""
+    from iivision_tpu_torch import roofline
+
+    t, by = roofline.least_time(nbytes, ops, int_ops,
+                                roofline.device_peaks(0))
+    return dict(bound_ms=t * 1e3, bound_by=by)
 
 
 def synth_clip(seconds=10.0, fps=30, w=280, h=192, phase=0.0):
@@ -732,9 +754,9 @@ def check_chunk_start(dev, report):
     import numpy as np
     import torch
 
+    from iivision_tpu_torch import roofline
     from iivision_tpu_torch.ops import chunk_start, distance
     from iivision_tpu_torch.palettes import Palette
-    from iivision_tpu_torch.screen import spec_for_mode
     from iivision_tpu_torch.video_mode import VideoMode
 
     D, H = VideoMode.DHGR, VideoMode.HGR
@@ -774,17 +796,8 @@ def check_chunk_start(dev, report):
             banks, lanes, frame, bank, sub, *state, mode), 200)
         plain_ms = cuda_ms(lambda: chunk_start.chunk_start_plain(
             banks, lanes, frame, bank, sub, *state, mode), 3)
-        # bytes: every bank row, the bank's two target lanes, up read and
-        # written, dw written, the cost basis (for yiq the window costs the
-        # offsets index, at most one int32 per offset and window)
-        nbytes = B * (nb * 8192 * 4 + 8192 * 4 + 3 * 8192 * 4)
-        nbytes += (min(sub.numel(), B * 8192 * sub.shape[1]) * 4
-                   if model == "yiq" else 1024)
-        # int32 operations at the 240 offsets of a page that are not
-        # holes: one add per yiq window, or an add, two compares and a min
-        # per DP step
-        int_ops = B * 32 * 240 * (sub.shape[1] if model == "yiq"
-                                  else 4 * spec_for_mode(mode).MASKED_DOTS)
+        # bytes and int32 operations: roofline.chunk_start_cost
+        nbytes, _, int_ops = roofline.chunk_start_cost(mode, B, model)
         bnd = bound(nbytes, int_ops=int_ops)
         print("chunk_start %s %s B=%d bank=%d: max_abs_err=%d ms=%.4f "
               "plain_ms=%.4f bound_ms=%.5f (%s)" % (
@@ -892,6 +905,7 @@ def check_body(dev, report, joint: bool = False):
     (every content ties)."""
     import torch
 
+    from iivision_tpu_torch import roofline
     from iivision_tpu_torch.ops import body
     from iivision_tpu_torch.ops import random as trandom
     from iivision_tpu_torch.video_mode import VideoMode
@@ -955,19 +969,9 @@ def check_body(dev, report, joint: bool = False):
             *st[:3], lanes, bytes_tgt, frame, bank, table, keys, nvalid, b0,
             Sc, st[3], mode, joint), 2)
         nv = plan.step_nvalid[b0:b0 + Sc]
-        run = int((nv > 0).sum())
-        C = table.shape[1]
-        # bytes per movie: up, dw and the bank bytes read and written, the
-        # target bytes and the bank's two target lanes, one table read per
-        # offset per sub-op run, the body's records; joint content adds the
-        # bank's table rows (each read once) and, per offset and content of
-        # every sub-op run, a float subtract and compare
-        nbytes = B * (3 * 2 * 8192 * 4 + 2 * 8192 * 4
-                      + run * k * j * 256 * 2 + Sc * k * j * 6)
-        ops_f = 0.0
-        if joint:
-            nbytes += B * 8192 * C * 2
-            ops_f = 2.0 * B * run * k * j * 256 * C
+        # bytes and float32 operations: roofline.body_cost
+        nbytes, ops_f, _ = roofline.body_cost(mode, k, j, B, Sc,
+                                              int((nv > 0).sum()), joint)
         bnd = bound(nbytes, ops_f)
         print("%s %s k=%d j=%d B=%d seeded=%s %s steps=%d nvalid=%s: "
               "max_abs_err=%d ms=%.4f plain_ms=%.4f bound_ms=%.5f (%s)" % (
@@ -1313,7 +1317,7 @@ def build_lut(dev):
         tables.numel() * 2 // (1 << 20), build_s))
     codes = [editdist.lane_codes(VideoMode.DHGR, lane, dev)
              for lane in range(4)]
-    return tables, codes, editdist.cost_matrix(Palette.NTSC, dev)
+    return tables, codes, editdist.cost_matrix(Palette.NTSC, dev), build_s
 
 
 def write_tone(path, seconds: int):
@@ -1376,7 +1380,32 @@ def run_movie(dev, dists, mode, k: int, j: int, seconds: int,
               stats["n_ops"], len(data), stats["frames_s"],
               stats["audio_s"], stats["tables_s"], stats["encode_s"],
               stats["emit_s"], stats["total_s"], stats["realtime_x"]))
+    if m.encoder_used != "whole":
+        raise AssertionError("a %d s clip took the %s encoder"
+                             % (seconds, m.encoder_used))
+    roofline_line("movie %s %ds" % (mode.name, seconds), dev, m.plan, mode,
+                  1, stats["encode_s"], enc_launches(), model=colour_model)
     return m
+
+
+def roofline_line(what, dev, plan, mode, batch: int, seconds: float,
+                  launched, model: str = "window", joint: bool = False,
+                  shards: int = 1):
+    """Print `roofline.report`'s line for one encode of `seconds` and fail
+    unless its modelled chunk starts and bodies equal the counted
+    launches, `launched` = (chunk starts, bodies) of every instantiation."""
+    from iivision_tpu_torch import roofline
+
+    rec = roofline.report(plan, mode, batch, seconds, dev, model, joint,
+                          shards)
+    print("%s (%s; counted %d chunk starts / %d bodies)"
+          % (rec["line"], what, *launched))
+    if tuple(launched) != (rec["chunk_starts"], rec["bodies"]):
+        raise AssertionError("%s: %d chunk starts and %d bodies launched, "
+                             "the roofline models %d and %d" % (
+                                 what, *launched, rec["chunk_starts"],
+                                 rec["bodies"]))
+    return rec
 
 
 def run_mono(dev, dists, mode):
@@ -1502,7 +1531,7 @@ def run_batch(dev, B: int = 32, seconds: float = 10.0):
     import torch
 
     from iivision_tpu_torch import encoder
-    from iivision_tpu_torch.ops import body, chunk_start, distance
+    from iivision_tpu_torch.ops import distance
     from iivision_tpu_torch.palettes import Palette
     from iivision_tpu_torch.parallel import mesh
     from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
@@ -1528,13 +1557,12 @@ def run_batch(dev, B: int = 32, seconds: float = 10.0):
         torch.as_tensor(src[:, :n_enc]).to(dev), mode, Palette.NTSC)
     torch.cuda.synchronize()
     t1 = time.time()
-    launched = chunk_start.chunk_start.launches + body.encode_body.launches
+    before = enc_launches()
     ops_b, main_b, aux_b = mesh.encode_movies_batch(
         dist, lanes_b, bytes_b, plan, mode, seeds=list(range(B)))
     torch.cuda.synchronize()
     t2 = time.time()
-    launched = (chunk_start.chunk_start.launches
-                + body.encode_body.launches) - launched
+    launched = tuple(a - b for a, b in zip(enc_launches(), before))
     flat_b = mesh.fetch_ops_compact(ops_b, plan)
     streams = [emit_stream_fast(flat_b[i], levels, mode) for i in range(B)]
     t3 = time.time()
@@ -1559,15 +1587,83 @@ def run_batch(dev, B: int = 32, seconds: float = 10.0):
           "vm_check_s=%.3f solo_check_s=%.3f; %d streams VM-valid, movies "
           "0 and %d equal their solo encodes"
           % (B, seconds, plan.n_ops, S, synth_s, t1 - t0, t2 - t1, t3 - t2,
-             wall, B * movie_s / wall, launched / S, t4 - t3,
+             wall, B * movie_s / wall, sum(launched) / S, t4 - t3,
              time.time() - t4, B, B - 1))
+    roofline_line("batch B=%d" % B, dev, plan, mode, B, t2 - t1, launched)
+    return dict(src=src, n_enc=n_enc, plan=plan, dist=dist, levels=levels,
+                streams=streams, main=main_np, aux=aux_np, ingest_s=t1 - t0,
+                encode_s=t2 - t1, fetch_emit_s=t3 - t2, total_s=wall,
+                realtime_x=B * movie_s / wall)
+
+
+def run_batch_mesh(dev, base):
+    """The same batch on the mesh (cuda:0, cuda:0): two shards of 16
+    movies on one card, each ingested, encoded (seeds 0..B-1 in batch
+    order) and fetched in a host thread of its own under a CUDA stream of
+    its own, then emitted.  Every stream and final screen must equal the
+    unsharded phase's (`base`, run_batch's result); the wall time and
+    `realtime_x` print beside that phase's, and each shard launches its
+    own chunk starts and bodies."""
+    import numpy as np
+    import torch
+
+    from iivision_tpu_torch.palettes import Palette
+    from iivision_tpu_torch.parallel import mesh
+    from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
+    from iivision_tpu_torch.video_mode import VideoMode
+
+    mode = VideoMode.DHGR
+    two = mesh.as_mesh((dev, dev))
+    src, plan, levels = base["src"], base["plan"], base["levels"]
+    B = len(src)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    lanes_s, bytes_s = mesh.ingest_movies_batch(
+        torch.as_tensor(src[:, :base["n_enc"]]).to(dev), mode, Palette.NTSC,
+        mesh=two)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    before = enc_launches()
+    ops_s, main_s, aux_s = mesh.encode_movies_batch(
+        base["dist"], lanes_s, bytes_s, plan, mode, seeds=list(range(B)),
+        mesh=two)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    launched = tuple(a - b for a, b in zip(enc_launches(), before))
+    flat = mesh.fetch_ops_parallel(ops_s, plan)
+    streams = [emit_stream_fast(flat[i], levels, mode) for i in range(B)]
+    t3 = time.time()
+    wall = t3 - t0
+    realtime_x = B * plan.n_ops / 14700.0 / wall
+    if [len(x) for x in ops_s] != [B // 2, B // 2]:
+        raise AssertionError("mesh shards of %s movies"
+                             % [len(x) for x in ops_s])
+    bad = [i for i in range(B) if streams[i] != base["streams"][i]]
+    if bad:
+        raise AssertionError("mesh batch movies %s differ from the unsharded "
+                             "batch" % bad[:8])
+    if not (np.array_equal(torch.cat(main_s).cpu().numpy(), base["main"])
+            and np.array_equal(torch.cat(aux_s).cpu().numpy(), base["aux"])):
+        raise AssertionError("mesh batch final screens differ from the "
+                             "unsharded batch")
+    print("batch DHGR B=%d mesh=2 (cuda:0 twice) k=16 j=4: ingest_s=%.3f "
+          "encode_s=%.3f fetch_emit_s=%.3f total_s=%.3f realtime_x=%.3f; "
+          "unsharded ingest_s=%.3f encode_s=%.3f fetch_emit_s=%.3f "
+          "total_s=%.3f realtime_x=%.3f; %d streams and finals byte-equal "
+          "to the unsharded batch" % (
+              B, t1 - t0, t2 - t1, t3 - t2, wall, realtime_x,
+              base["ingest_s"], base["encode_s"], base["fetch_emit_s"],
+              base["total_s"], base["realtime_x"], B))
+    roofline_line("mesh batch B=%d over 2 shards" % B, dev, plan, mode, B,
+                  t2 - t1, launched, shards=2)
 
 
 def run_cli_mixed(dev):
-    """The CLI's batch mode (k=16 j=4) on three .npz clips of 10, 6 and
-    3 s with no audio track: each stream plays in the VM at its own op
-    count, and the 3 s one (seed 2) equals its solo encode padded to the
-    batch's plan."""
+    """The CLI's batch mode (k=16 j=4, `--mesh auto`: every card, here
+    one, so the group runs unsharded) on three .npz clips of 10, 6 and 3 s
+    with no audio track: each stream plays in the VM at its own op count,
+    and the 3 s one (seed 2) equals its solo encode padded to the batch's
+    plan."""
     import numpy as np
 
     from iivision_tpu_torch import cli, encoder, frames
@@ -1589,7 +1685,8 @@ def run_cli_mixed(dev):
         stats = os.path.join(tmp, "stats.json")
         t0 = time.time()
         cli.main(clips + ["--device", str(dev), "--output", out_dir,
-                          "--k", "16", "--j", "4", "--stats_json", stats])
+                          "--k", "16", "--j", "4", "--stats_json", stats,
+                          "--mesh", "auto"])
         wall = time.time() - t0
         with open(stats) as f:
             rows = json.load(f)
@@ -1684,7 +1781,10 @@ def run_quality(dev, dists):
 
 
 def enc_launches():
-    return launch_count("chunk_start"), launch_count("encode_body")
+    """(chunk starts, bodies) counted so far, every instantiation of
+    each."""
+    return (launch_count("chunk_start") + launch_count("chunk_start_yiq"),
+            launch_count("encode_body") + launch_count("encode_body_joint"))
 
 
 def timed_transcode(dev, dist, rgb, wav, mode, k: int, j: int, tmp, *,
@@ -2377,6 +2477,7 @@ def trace_encodes(dev, report, seconds: float = 1.0, B: int = 32):
                                           us / n))
             if nb == 1 and k == 8 and "encode_body" in name:
                 body_us = us / n
+    trace_mesh(dist, lanes_b, bytes_b, mode, seconds)
     if body_us is not None:
         print("encode_body DHGR k=8 j=1 B=1: profiler us_per_launch=%.2f "
               "(a whole clip's bodies) against the event timer's %.2f us "
@@ -2402,11 +2503,165 @@ def trace_encodes(dev, report, seconds: float = 1.0, B: int = 32):
               entry["profiler_ms"], n, entry["ms"], entry["wrapper_ms"]))
 
 
+def trace_mesh(dist, lanes_b, bytes_b, mode, seconds: float):
+    """torch.profiler over the B-movie batch encode at k=16 j=4 sharded
+    over (cuda:0, cuda:0): device busy share, and how far the two shards'
+    kernels overlap on the card (1 - the union of the kernels' device
+    intervals over their sum: 0 when they serialize)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from iivision_tpu_torch import encoder
+    from iivision_tpu_torch.parallel import mesh
+
+    dev = lanes_b.device
+    plan, _ = encoder.plan_movie(
+        n_frames=int(seconds * 30), n_audio_ticks=int(seconds * 14700),
+        input_frame_rate=30.0, ticks_per_second=14700.0,
+        every_n_video_frames=2, mode=mode, k=16, j=4)
+    two = mesh.as_mesh((dev, dev))
+    shards = [mesh.shard_batch(x, two) for x in (lanes_b, bytes_b)]
+    seeds = list(range(len(lanes_b)))
+    mesh.encode_movies_batch(dist, *shards, plan, mode, seeds, mesh=two)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        mesh.encode_movies_batch(dist, *shards, plan, mode, seeds, mesh=two)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    total = sum(b - a for a, b in spans)
+    union, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    _, launches = profiled_kernels(prof)
+    print("trace mesh2 B=%d %gs k=16 j=4 (cuda:0 twice): encode_s=%.3f "
+          "device_kernel_s=%.4f busy_share=%.4f device_kernels=%d "
+          "launches=%d overlap_share=%.4f" % (
+              len(seeds), seconds, wall, union / 1e6, union / 1e6 / wall,
+              len(spans), launches, 1 - union / total if total else 0.0))
+
+
 def build_and_check_lut(dev):
     """The LUT entry point: the full DHGR NTSC 4 x 8192^2 uint16 table
-    through kernel A, then its checks."""
-    tables, codes, sub = build_lut(dev)
+    through kernel A, then its checks.  Returns (the table, build_s)."""
+    tables, codes, sub, build_s = build_lut(dev)
     check_lut(dev, tables, codes, sub)
+    return tables, build_s
+
+
+def run_lut_sharded(dev, lut, n_rows: int = 1024):
+    """build_tables_sharded on DHGR NTSC over the mesh (cuda:0, cuda:0):
+    the first `n_rows` rows of every lane in two row blocks, each kernel
+    A's general tile against all 8192 codes.  Every lane must equal the
+    same rows of the full LUT that `lut` = (table, build_s) holds."""
+    import torch
+
+    from iivision_tpu_torch.palettes import Palette
+    from iivision_tpu_torch.parallel import mesh
+    from iivision_tpu_torch.video_mode import VideoMode
+
+    tables, full_s = lut
+    n = 8192
+    build_s = []  # the first call in the process, then a second one
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        rows = mesh.build_tables_sharded(VideoMode.DHGR, Palette.NTSC,
+                                         (dev, dev), n_rows=n_rows)
+        torch.cuda.synchronize()
+        build_s.append(time.time() - t0)
+    if tuple(rows.shape) != (4, n_rows * n) or rows.dtype != torch.uint16:
+        raise AssertionError("sharded LUT rows of shape %s %s"
+                             % (tuple(rows.shape), rows.dtype))
+    full = tables.view(torch.int16).view(4, n, n)
+    got = rows.view(torch.int16).view(4, n_rows, n)
+    for lane in range(4):
+        if not torch.equal(got[lane], full[lane, :n_rows]):
+            bad = (got[lane] != full[lane, :n_rows]).nonzero()[:4].tolist()
+            raise AssertionError("sharded LUT lane %d differs from the full "
+                                 "LUT at %s" % (lane, bad))
+    print("LUT DHGR NTSC sharded over (cuda:0, cuda:0): %d rows x %d lanes "
+          "build_s=%.4f, again %.4f (%.3g s per 1k rows; the full LUT's "
+          "symmetric build %.4f s for %d rows, %.3g s per 1k rows); every "
+          "row equals the full LUT's" % (
+              n_rows, 4, build_s[0], build_s[1], build_s[1] * 1024 / n_rows,
+              full_s, n, full_s * 1024 / n))
+
+
+ORACLE_CASES = (  # (path, mode, k, j, seconds, joint)
+    ("host_oracle_dhgr_1s_k8_j1", "DHGR", 8, 1, 1.0, False),
+    ("host_oracle_hgr_1s_k4_j3", "HGR", 4, 3, 1.0, False),
+    ("host_oracle_dhgr_joint_k16_j4", "DHGR", 16, 4, 0.25, True))
+
+
+def run_host_oracle(dev, mode_name: str, k: int, j: int, seconds: float,
+                    joint: bool):
+    """A deterministic (seed None) encode of a synthetic clip (30 fps,
+    every 2nd frame) through encoder.encode_movie on the card, with the
+    CUDA kernels, against the port's host oracle: its ops must equal
+    encoder_host.encode_movie_host's op for op, and a HostEncoder replay's
+    ops and final screens must equal the card's.  Prints the oracle's host
+    seconds beside the card's encode."""
+    import numpy as np
+    import torch
+
+    from iivision_tpu_torch import encoder, encoder_host
+    from iivision_tpu_torch.ops import distance
+    from iivision_tpu_torch.palettes import Palette
+    from iivision_tpu_torch.parallel import mesh
+    from iivision_tpu_torch.video_mode import VideoMode
+
+    mode = VideoMode[mode_name]
+    F = int(seconds * 30)
+    src = torch.as_tensor(synth_clip(seconds=seconds, phase=1.3)[None, ::2])
+    lanes_b, bytes_b = mesh.ingest_movies_batch(src.to(dev), mode,
+                                                Palette.NTSC)
+    plan, n_enc = encoder.plan_movie(
+        n_frames=F, n_audio_ticks=int(seconds * 14700),
+        input_frame_rate=30.0, ticks_per_second=14700.0,
+        every_n_video_frames=2, mode=mode, k=k, j=j)
+    dist = distance.ComputedDistance(mode, Palette.NTSC, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ops, main, aux = encoder.encode_movie(dist, lanes_b[0, :n_enc],
+                                          bytes_b[0, :n_enc], plan, mode,
+                                          seed=None, joint=joint)
+    flat = encoder.flatten_ops(ops.cpu().numpy(), plan).astype(np.int32)
+    card_s = time.time() - t0
+    lanes, bytes_ = lanes_b[0, :n_enc].cpu(), bytes_b[0, :n_enc].cpu()
+    t0 = time.time()
+    want = encoder_host.encode_movie_host(dist, lanes, bytes_, plan, mode,
+                                          joint=joint)
+    oracle_s = time.time() - t0
+    t0 = time.time()
+    henc = encoder_host.HostEncoder(mode, dist, k=k, j=j, joint=joint)
+    replay = np.asarray(encoder_host.run_plan(henc, lanes, bytes_, plan),
+                        np.int32)
+    replay_s = time.time() - t0
+    if not np.array_equal(flat, want):
+        bad = np.argwhere((flat != want).any(axis=1))[:, 0]
+        raise AssertionError("%s k=%d j=%d%s: the card's ops differ from the "
+                             "host oracle at %d ops, first op %d: %s vs %s" % (
+                                 mode.name, k, j, " joint" if joint else "",
+                                 len(bad), bad[0], flat[bad[0]].tolist(),
+                                 want[bad[0]].tolist()))
+    if not (np.array_equal(replay, want)
+            and np.array_equal(main.cpu().numpy(), henc.banks[0])
+            and np.array_equal(aux.cpu().numpy(), henc.banks[-1])):
+        raise AssertionError("%s k=%d j=%d: the HostEncoder replay's ops or "
+                             "final screens differ from the card's"
+                             % (mode.name, k, j))
+    print("host oracle %s %gs k=%d j=%d%s seed=None: n_ops=%d, ops and final "
+          "screens equal; card encode+fetch_s=%.3f oracle_s=%.3f "
+          "replay_s=%.3f" % (mode.name, seconds, k, j,
+                             " joint" if joint else "", plan.n_ops, card_s,
+                             oracle_s, replay_s))
 
 
 def check_lut(dev, tables, codes, sub):

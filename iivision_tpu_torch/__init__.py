@@ -35,10 +35,17 @@ What runs through `jax` there is written here in torch:
 - `ops.subop_bench`: the sub-op microbenchmark's math (kernel C, CUDA);
 - `ops.resize`: the batched Lanczos resize (float64 einsums);
 - `ops.dither`: the ordered, HGR and mono quantizers and screen packing;
-- `parallel.mesh`: batch ingest, batch and mixed-length encodes and op
-  fetches on one card;
+- `parallel.mesh`: batch ingest, batch and mixed-length encodes, op
+  fetches and the LUT build, on one card or sharded over a mesh of
+  devices;
 - `quality`: replay and perceptual scoring of emitted streams;
+- `roofline`: the encode's cost model on a card's peaks;
 - `encoder`, `audio`, `movie`, `cli`, `make_tables`, `bench_subop`.
+
+Host tools with no device code: `encoder_host` (the numpy oracle of the
+encoder), `encoder_parity` (the reference-order k=1 greedy) and
+`compare_quantizers` (the image-level quantizer harness, whose resizes run
+on its `--device`).
 
 Device policy: every function that allocates takes an explicit `device`;
 nothing here guesses one.  A CUDA tensor runs the hand-written kernels and

@@ -25,6 +25,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 
 from iivision_tpu_torch.sim._build import writable_build_dir
@@ -147,6 +148,17 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError("%s: CUDA error %d (%s)" % (
             name, err, lib.iiv_error_string(err).decode()))
+
+
+_COUNT_LOCK = threading.Lock()
+
+
+def count(wrapper, attr: str = "launches") -> None:
+    """Add one to a kernel wrapper's launch counter.  The shards of a mesh
+    launch from threads of their own, so the read-modify-write holds one
+    lock: no launch goes uncounted."""
+    with _COUNT_LOCK:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def stream_ptr(device) -> int:

@@ -5,9 +5,12 @@ as one batch.
     python -m iivision_tpu_torch.cli clip.mp4 --device cuda
     python -m iivision_tpu_torch.cli a.mp4 b.mp4 --device cuda [--joint_content]
     python -m iivision_tpu_torch.cli long.mp4 --device cuda --chunk_frames 512
+    python -m iivision_tpu_torch.cli a.mp4 b.mp4 --device cuda --mesh auto
 
-A mesh of more than one card, which the port does not run yet, is refused
-with the ROADMAP.md item that will bring it; nothing falls back silently.
+`--mesh N|auto` shards each batch group over N cards (`auto`: every card of
+the `--device` kind, one for the CPU), clamped to the largest divisor of the
+group's size; the streams are byte-equal to unsharded ones.  A solo input
+ignores it.
 """
 
 import argparse
@@ -15,7 +18,6 @@ import json
 import os
 
 from iivision_tpu_torch.palettes import Palette
-from iivision_tpu_torch.parallel.mesh import SHARDING_ITEM
 from iivision_tpu_torch.video_mode import VideoMode
 
 
@@ -26,24 +28,26 @@ def _default_out(path: str) -> str:
     return stem + ".a2m"
 
 
-def mesh_cards(args) -> int:
-    """Cards `--mesh` asks for: a count, or 'auto' for every card of the
-    device's kind (one for the CPU)."""
-    if args.mesh is None:
-        return 1
-    if args.mesh == "auto":
-        import torch
+def _group_mesh(arg, batch_size: int, device: str = "cuda"):
+    """The mesh for one batch group under `--mesh`, or None (unsharded):
+    the requested count of `device`'s kind ('auto': every card, one for
+    the CPU), clamped to the cards the host has and then to the largest
+    divisor of the group's size, since the batch must split evenly
+    (iivision_tpu/cli.py `_group_mesh`)."""
+    if arg is None:
+        return None
+    import torch
 
-        if args.device.startswith("cuda"):
-            return max(1, torch.cuda.device_count())
-        return 1
-    return int(args.mesh)
+    from iivision_tpu_torch.parallel import mesh as pmesh
 
-
-# flag -> (test on the parsed args, ROADMAP.md item)
-_NOT_PORTED = [
-    ("--mesh above one card", lambda a: mesh_cards(a) != 1, SHARDING_ITEM),
-]
+    on_cards = torch.device(device).type == "cuda"
+    have = torch.cuda.device_count() if on_cards else 1
+    want = have if arg == "auto" else int(arg)
+    if on_cards:
+        want = max(1, min(want, have))
+    n = max(d for d in range(1, min(want, batch_size) + 1)
+            if batch_size % d == 0)
+    return None if n <= 1 else pmesh.make_mesh(n, device)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -101,8 +105,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "targets; same output); default: whole-movie up "
                         "to 1024 encoded frames, 512 past that.")
     p.add_argument("--mesh", default=None,
-                   help="Cards to shard a batch over: 1, or 'auto' on a "
-                        "one-card host (more is not ported yet).")
+                   help="Shard each batch group over a device mesh: a "
+                        "device count or 'auto' (every card), clamped to "
+                        "the largest divisor of the group's size; streams "
+                        "are byte-equal to unsharded ones.  A solo input "
+                        "ignores it.")
     p.add_argument("--stats_json", default=None,
                    help="Write the transcode stats to this JSON file.")
     return p
@@ -111,10 +118,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(args=None):
     parser = build_parser()
     args = parser.parse_args(args)
-    for flag, used, item in _NOT_PORTED:
-        if used(args):
-            parser.error("%s is not ported to iivision_tpu_torch yet "
-                         "(ROADMAP.md %s)" % (flag, item))
     if args.dither is None:
         # the mono colour model pairs with the 1-bit mono quantizer
         args.dither = "mono" if args.colour_model == "mono" else "ordered"
@@ -163,7 +166,8 @@ def transcode_batch(args):
     Each input is ingested on the host and its audio decoded and
     resampled on the device; inputs are grouped by probed frame rate
     (movies in one batch share the opcode schedule's timing) and each group
-    runs `parallel.mesh.encode_movies_mixed` with seeds args.seed + i.
+    runs `parallel.mesh.encode_movies_mixed` with seeds args.seed + i,
+    sharded over `_group_mesh(args.mesh, ...)`.
     Returns the output paths."""
     import time
 
@@ -223,7 +227,8 @@ def transcode_batch(args):
             dist, movies, mode, rate, float(args.audio_bitrate),
             every_n_video_frames=args.every_n_video_frames,
             k=args.k, j=args.j, seeds=[args.seed + i for i in idxs],
-            joint=args.joint_content)
+            joint=args.joint_content,
+            mesh=_group_mesh(args.mesh, len(movies), args.device))
         encode_s = time.time() - t0
         for flat, i in zip(flats, idxs):
             path, fr, aud, out = ingested[i]

@@ -53,7 +53,7 @@ from iivision_tpu_torch.ops import body, chunk_start
 from iivision_tpu_torch.ops import random as trandom
 from iivision_tpu_torch.ops.chunk_start import n_banks
 from iivision_tpu_torch.plan import (  # noqa: F401
-    OP_FIELDS, MoviePlan, flatten_ops, plan_movie)
+    OP_FIELDS, MoviePlan, flatten_ops, ops_to_ticks, plan_movie)
 from iivision_tpu_torch.video_mode import VideoMode, require_mode
 
 

@@ -24,6 +24,8 @@ from iivision_tpu_torch import encoder, frames, require_device
 from iivision_tpu_torch.ops import distance
 from iivision_tpu_torch.palettes import Palette, require_palette
 from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
+from iivision_tpu_torch.stream.framing import StreamFramer
+from iivision_tpu_torch.stream.opcodes import Header
 from iivision_tpu_torch.video_mode import VideoMode, require_mode
 
 
@@ -211,6 +213,20 @@ class Movie:
             targets_main=targets_main, targets_aux=targets_aux,
             n_frames_total=self._n_frames_total,
             input_frame_rate=self._input_rate)
+
+    def emit_stream(self):
+        """The movie's whole byte stream (header, ticks, ACKs, padding),
+        chunk by chunk, through the object-level `StreamFramer`: the same
+        bytes `transcode` writes."""
+        flat, levels = self.encode_ops()
+        framer = StreamFramer(self.video_mode,
+                              max_bytes_out=self.max_bytes_out)
+
+        def op_iter():
+            yield Header(self.video_mode)
+            yield from encoder.ops_to_ticks(flat, levels)
+
+        yield from framer.emit_stream(op_iter())
 
     def transcode(self, out_path: str) -> dict:
         """Encode to an .a2m file; returns timing stats."""

@@ -154,9 +154,9 @@ def encode_body(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame: int,
         ctypes.c_void_p(ops.data_ptr()), int(joint),
         ctypes.c_void_p(_build.stream_ptr(up.device)))
     if joint:
-        encode_body.joint_launches += 1
+        _build.count(encode_body, "joint_launches")
     else:
-        encode_body.launches += 1
+        _build.count(encode_body, "launches")
 
 
 encode_body.launches = 0
@@ -186,7 +186,7 @@ def threefry_uniform(keys: torch.Tensor, steps: torch.Tensor, k: int,
         ctypes.c_void_p(nonce_p.data_ptr()),
         ctypes.c_void_p(nonce_o.data_ptr()),
         ctypes.c_void_p(_build.stream_ptr(keys.device)))
-    threefry_uniform.launches += 1
+    _build.count(threefry_uniform, "launches")
     return nonce_p, nonce_o
 
 

@@ -120,9 +120,9 @@ def chunk_start(banks, lanes_tgt_b, frame: int, bank: int, sub, up, dw,
         ctypes.c_void_p(dw.data_ptr()),
         ctypes.c_void_p(_build.stream_ptr(banks.device)))
     if yiq_model:
-        chunk_start.yiq_launches += 1
+        _build.count(chunk_start, "yiq_launches")
     else:
-        chunk_start.launches += 1
+        _build.count(chunk_start, "launches")
 
 
 chunk_start.launches = 0

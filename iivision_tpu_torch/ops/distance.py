@@ -25,6 +25,7 @@ Every distance is an integer below 2^16, so int32 here equals the JAX
 package's float32 exactly.
 """
 
+import copy
 import functools
 import os
 
@@ -302,3 +303,16 @@ class ComputedDistance:
         self.store_cost16 = torch.as_tensor(
             store_cost_table(mode, palette, model, self.device),
             device=self.device)
+
+    def to(self, device) -> "ComputedDistance":
+        """The same model on `device`: this one if it is there already,
+        else a copy whose tensors are copied over (nothing is rebuilt or
+        reloaded).  A mesh's `replicate` gives each entry one."""
+        device = torch.device(device)
+        if device == self.device:
+            return self
+        out = copy.copy(self)
+        out.device = device
+        out.sub = self.sub.to(device)
+        out.store_cost16 = self.store_cost16.to(device)
+        return out

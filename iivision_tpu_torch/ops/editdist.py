@@ -21,8 +21,9 @@ A wrapper runs its plain version only for CPU tensors.  For CUDA tensors
 it launches the kernel (csrc/editdist.cu) or raises.  Each wrapper counts
 its kernel launches in its `launches` attribute.
 
-The code strings, the cost matrix, the scalar oracle and the npz writer
-and reader are numpy copies of the JAX module's (same names).
+The code strings, the cost matrix, the scalar oracles (`dam_lev_scalar`,
+`diagonal_dp_scalar`) and the npz writer and reader are numpy copies of
+the JAX module's (same names).
 """
 
 import ctypes
@@ -94,6 +95,20 @@ def dam_lev_scalar(a, b, sub: np.ndarray,
             )
         da[a[i - 1]] = i
     return float(d[la + 1, lb + 1])
+
+
+def diagonal_dp_scalar(a, b, sub: np.ndarray) -> float:
+    """Scalar form of the diagonal recurrence (test cross-check): D[k] =
+    D[k-1] + C[a_k, b_k], or D[k-2] + the transposition cost where a_k,
+    a_{k-1} are b_{k-1}, b_k swapped, whichever is less."""
+    assert len(a) == len(b)
+    dm2, dm1 = 0.0, None
+    for k in range(len(a)):
+        dk = (dm1 if dm1 is not None else 0.0) + float(sub[a[k], b[k]])
+        if k >= 1 and a[k] == b[k - 1] and a[k - 1] == b[k]:
+            dk = min(dk, dm2 + TRANSPOSE_COST)
+        dm2, dm1 = (dm1 if dm1 is not None else 0.0), dk
+    return dm1 if dm1 is not None else 0.0
 
 
 def table_path(mode: VideoMode, palette: Palette,
@@ -231,7 +246,7 @@ def pair_distance(codes_a: torch.Tensor, codes_b: torch.Tensor,
                   int(same_codes(codes_a, codes_b)),
                   ctypes.c_void_p(out.data_ptr()),
                   ctypes.c_void_p(_build.stream_ptr(codes_a.device)))
-    pair_distance.launches += 1
+    _build.count(pair_distance, "launches")
     return out
 
 
@@ -265,7 +280,7 @@ def dist_pairs_elementwise(pa: torch.Tensor, pb: torch.Tensor,
                   ctypes.c_void_p(sub_d.data_ptr()),
                   ctypes.c_void_p(out.data_ptr()),
                   ctypes.c_void_p(_build.stream_ptr(pa.device)))
-    dist_pairs_elementwise.launches += 1
+    _build.count(dist_pairs_elementwise, "launches")
     return out
 
 
@@ -345,7 +360,7 @@ def lane_distance(va: torch.Tensor, vb: torch.Tensor, mode: VideoMode,
                   ctypes.c_void_p(sub_d.data_ptr()),
                   ctypes.c_void_p(out.data_ptr()),
                   ctypes.c_void_p(_build.stream_ptr(va.device)))
-    lane_distance.launches += 1
+    _build.count(lane_distance, "launches")
     return out
 
 

@@ -142,7 +142,7 @@ def _run(wrapper, joint: bool, rows, sc_rows, table, nonce, pages,
         ctypes.c_void_p(pad_content.data_ptr()), B, k, j, int(nvalid),
         int(joint), ctypes.c_void_p(out.data_ptr()),
         ctypes.c_void_p(_build.stream_ptr(rows.device)))
-    wrapper.launches += 1
+    _build.count(wrapper, "launches")
 
 
 def sub_op_chain(rows, sc_rows, table, nonce, pages, nvalid: int,

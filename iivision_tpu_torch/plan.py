@@ -1,6 +1,6 @@
 """The encoder's host-side opcode schedule (the port's copy of
-iivision_tpu/encoder.py `MoviePlan`, `plan_movie` and `flatten_ops`; pure
-numpy).
+iivision_tpu/encoder.py `MoviePlan`, `plan_movie`, `flatten_ops` and
+`ops_to_ticks`; pure numpy).
 
 Scheduling semantics follow the reference encode loop: one opcode per
 audio tick; frame f is pulled at the first tick >= ticks_per_frame * f;
@@ -130,3 +130,16 @@ def flatten_ops(ops: np.ndarray, plan: MoviePlan) -> np.ndarray:
     valid = np.arange(k)[None, :] < plan.step_nvalid[:, None]
     flat = ops.reshape(S_real * k, OP_FIELDS)
     return flat[valid.reshape(-1)]
+
+
+def ops_to_ticks(flat_ops: np.ndarray, audio_levels: np.ndarray):
+    """Merge (n_ops, 6) encoder ops with audio levels into Tick opcodes,
+    one per op (host)."""
+    n = len(flat_ops)
+    if len(audio_levels) < n:
+        raise ValueError("%d audio levels for %d ops" % (len(audio_levels),
+                                                         n))
+    for i in range(n):
+        page, content, o0, o1, o2, o3 = (int(x) for x in flat_ops[i])
+        yield ops_mod.Tick(ops_mod.audio_level_to_tick(int(audio_levels[i])),
+                           page, content, (o0, o1, o2, o3))

@@ -2,7 +2,8 @@
 encoder.encode_movies, the CLI's several-input mode) on the CPU against
 the JAX package's `iivision_tpu.parallel.mesh`: seeded batches byte-equal,
 each movie equal to its solo encode, mixed-length batches, the compact op
-fetch, and the one-card mesh rule."""
+fetch, and the mesh rules (tests/test_torch_mesh.py runs sharded
+batches)."""
 
 import json
 import os
@@ -130,14 +131,23 @@ def test_fetch_ops_compact_matches_flatten():
 
 @pytest.mark.parametrize("bad", [2, 4, ["cuda:0", "cuda:1"]])
 def test_mesh_refuses_more_than_one_card(bad):
+    """The mesh rules: a mesh must divide the batch (one movie on a CPU
+    mesh of 2 or 4 entries is refused), and may name no card the host
+    lacks; a one-entry mesh runs unsharded and returns tensors."""
     plan = flat_plan(DHGR, 8, 1)
     main, aux = batch_targets(DHGR, 1, 2, 0)
     lanes, bytes_ = encoder.prepare_targets(main, aux, DHGR, "cpu")
-    with pytest.raises(ValueError, match="multi-card batch sharding"):
+    if isinstance(bad, int):
+        bad, match = mesh.make_mesh(bad, "cpu"), "does not split"
+    else:
+        match = "this host has %d CUDA card" % torch.cuda.device_count()
+    with pytest.raises(ValueError, match=match):
         mesh.encode_movies_batch(torch_dist(DHGR), lanes, bytes_, plan,
                                  DHGR, seeds=[0], mesh=bad)
-    for one in (None, 1, torch.device("cpu"), ["cpu"]):
-        mesh.check_mesh(one)
+    for one in (torch.device("cpu"), ["cpu"]):
+        ops, _, _ = mesh.encode_movies_batch(torch_dist(DHGR), lanes, bytes_,
+                                             plan, DHGR, seeds=[0], mesh=one)
+        assert isinstance(ops, torch.Tensor) and ops.shape[0] == 1
 
 
 def test_cli_batch_transcodes_on_cpu(tmp_path, capsys):

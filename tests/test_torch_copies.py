@@ -1,7 +1,8 @@
 """iivision_tpu_torch keeps its own copies of the JAX package's host-side
 tables and functions (it imports nothing of the JAX package).  Each copy
 gives what the original gives, exactly: screen tables and specs, the plan,
-stream emission and opcode addresses, palettes and colour codes, the
+stream emission and opcode addresses, palettes, colour codes and the
+nominal-colour helpers, the scalar edit-distance oracles, the
 dither tables and host quantizers, resize, host ingest, audio levels, op
 replay, the yiq tables, the renderer and the player VM; and each native
 C++ source under `sim/csrc/` is the original byte for byte."""
@@ -14,6 +15,7 @@ import torch
 
 from iivision_tpu import audio as jaudio
 from iivision_tpu import cli as jcli
+from iivision_tpu import colours as jcolours
 from iivision_tpu import encoder as jenc
 from iivision_tpu import frames as jframes
 from iivision_tpu import palettes as jpalettes
@@ -31,7 +33,8 @@ from iivision_tpu.sim import native as jnative
 from iivision_tpu.stream.emit_fast import emit_stream_fast as j_emit
 from iivision_tpu.stream.opcodes import default_addresses as j_addresses
 from iivision_tpu.video_mode import VideoMode as JVideoMode
-from iivision_tpu_torch import audio, cli, encoder, frames, palettes, quality
+from iivision_tpu_torch import audio, cli, colours, encoder, frames, palettes
+from iivision_tpu_torch import quality
 from iivision_tpu_torch import render, screen
 from iivision_tpu_torch.ops import distance, dither, editdist, resize, yiq
 from iivision_tpu_torch.palettes import Palette
@@ -183,6 +186,90 @@ def test_lane_pixel_codes_and_scalar_oracle(mode, lane):
         a, b = list(codes[i]), list(codes[jx])
         assert editdist.dam_lev_scalar(a, b, sub) == \
             jed.dam_lev_scalar(a, b, sub)
+
+
+def test_diagonal_dp_scalar():
+    """The diagonal recurrence's scalar form equals the JAX package's and
+    the full Damerau-Levenshtein on random strings at L = 3, 10 and 18,
+    and gives tests/test_editdist.py's transposition costs."""
+    sub = editdist.substitute_matrix(Palette.NTSC)
+    rng = np.random.RandomState(42)
+    for L in (3, 10, 18):
+        for _ in range(60):
+            a, b = rng.randint(0, 16, size=(2, L))
+            got = editdist.diagonal_dp_scalar(a, b, sub)
+            assert got == jed.diagonal_dp_scalar(a, b, sub)
+            assert got == editdist.dam_lev_scalar(a, b, sub)
+    a, b = np.array([3, 7, 7, 7]), np.array([7, 3, 7, 7])
+    assert editdist.diagonal_dp_scalar(a, b, sub) == 1.0
+    assert editdist.diagonal_dp_scalar(a, a, sub) == 0.0
+    assert editdist.diagonal_dp_scalar(np.array([1, 2, 3, 4]),
+                                       np.array([2, 1, 4, 3]), sub) == 2.0
+
+
+def test_nominal_colour_helpers():
+    """rol / ror, the two nominal-colour enums and the scalar dot-stream
+    decoders equal the JAX package's, and give tests/test_colours.py's
+    golden runs; the vectorised decoder agrees with the scalar one."""
+    for v in range(16):
+        for r in range(8):
+            assert colours.rol(v, r) == jcolours.rol(v, r)
+            assert colours.ror(v, r) == jcolours.ror(v, r)
+            assert colours.ror(colours.rol(v, r), r) == v
+    assert colours.rol(0b1000, 1) == 0b0001
+    assert colours.ror(0b0010, 2) == 0b1000
+    for ours, theirs in ((colours.HGRColours, jcolours.HGRColours),
+                         (colours.DHGRColours, jcolours.DHGRColours)):
+        assert issubclass(ours, colours.NominalColours)
+        assert [(c.name, c.value) for c in ours] == [
+            (c.name, c.value) for c in theirs]
+    C = colours.HGRColours
+    assert colours.dots_to_nominal_colour_pixels(
+        31, 0b00000000000000000000111000000000, C, init_phase=0) == tuple(
+        [C.BLACK] * 6 + [C.DARK_BLUE, C.MED_BLUE, C.AQUA, C.AQUA, C.GREEN,
+                         C.BROWN] + [C.BLACK] * 19)
+    cycle = [C.BLACK, C.MAGENTA, C.VIOLET, C.LIGHT_BLUE, C.WHITE, C.AQUA,
+             C.GREEN, C.BROWN]
+    assert colours.dots_to_nominal_colour_pixels(
+        31, 0b0000111100001111000011110000, C, init_phase=0) == tuple(
+        cycle * 3 + [C.BLACK] * 7)
+    rng = np.random.RandomState(0)
+    dots = rng.randint(0, 2 ** 21, size=32, dtype=np.int64)
+    for phase in range(4):
+        vec = colours.dots_to_pixels_vec(dots, num_bits=18,
+                                         init_phase=phase)
+        for i, d in enumerate(dots):
+            for ours, theirs in ((colours.HGRColours, jcolours.HGRColours),
+                                 (colours.DHGRColours,
+                                  jcolours.DHGRColours)):
+                got = colours.dots_to_nominal_colour_pixel_values(
+                    18, int(d), ours, init_phase=phase)
+                assert got == jcolours.dots_to_nominal_colour_pixel_values(
+                    18, int(d), theirs, init_phase=phase)
+                assert [p.name for p in colours.dots_to_nominal_colour_pixels(
+                    18, int(d), ours, phase)] == [
+                    p.name for p in jcolours.dots_to_nominal_colour_pixels(
+                        18, int(d), theirs, phase)]
+            assert tuple(vec[i].tolist()) == \
+                colours.dots_to_nominal_colour_pixel_values(
+                    18, int(d), colours.HGRColours, init_phase=phase)
+
+
+def test_ops_to_ticks():
+    """encoder.ops_to_ticks (the object-level stream's ticks) equals the
+    JAX package's, field for field, and refuses too few audio levels."""
+    rng = np.random.RandomState(8)
+    flat = np.concatenate([rng.randint(32, 64, (50, 1)),
+                           rng.randint(0, 256, (50, 5))], axis=1)
+    levels = rng.randint(0, 32, 60)
+    got = list(encoder.ops_to_ticks(flat, levels))
+    want = list(jenc.ops_to_ticks(flat, levels))
+    assert len(got) == len(want) == 50
+    for g, w in zip(got, want):
+        assert type(g).__name__ == type(w).__name__ == "Tick"
+        assert vars(g) == vars(w)
+    with pytest.raises(ValueError, match="49 audio levels for 50 ops"):
+        list(encoder.ops_to_ticks(flat, levels[:49]))
 
 
 def test_save_tables_layout(tmp_path, monkeypatch):

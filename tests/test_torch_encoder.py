@@ -21,6 +21,8 @@ from iivision_tpu_torch.palettes import Palette
 from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
 from iivision_tpu_torch.video_mode import VideoMode
 
+from tests.test_pipeline import gradient_movie
+
 DHGR = VideoMode.DHGR
 HGR = VideoMode.HGR
 
@@ -240,14 +242,18 @@ def test_offset_zero_companion_matches_host_oracle():
     assert rows[0, 0, 2, 0] == 5 and rows[0, 0, 0, 0] == 0
 
 
-def test_unported_mode_raises(capsys):
-    """A mesh of more than one card is still refused, naming its ROADMAP
-    item; --chunk_frames (once refused here) is ported for one input and
-    refused for a batch, which encodes whole movies in lockstep."""
-    with pytest.raises(SystemExit):
-        cli.main(["a.npy", "--mesh", "2", "--device", "cpu"])
-    err = capsys.readouterr().err
-    assert "--mesh" in err and "ROADMAP.md" in err
+def test_unported_mode_raises(capsys, tmp_path):
+    """A solo input ignores --mesh, as the JAX CLI does: the same bytes as
+    without it; --chunk_frames (once refused here) is ported for one input
+    and refused for a batch, which encodes whole movies in lockstep."""
+    clip = str(tmp_path / "a.npy")
+    np.save(clip, gradient_movie(F=4))
+    outs = [str(tmp_path / "plain.a2m"), str(tmp_path / "mesh.a2m")]
+    cli.main([clip, "--device", "cpu", "--output", outs[0]])
+    cli.main([clip, "--mesh", "2", "--device", "cpu", "--output", outs[1]])
+    assert capsys.readouterr().out.count("Wrote ") == 2
+    data = [open(p, "rb").read() for p in outs]
+    assert len(data[0]) > 0 and data[0] == data[1]
     with pytest.raises(SystemExit):
         cli.main(["a.npy", "b.npy", "--joint_content", "--chunk_frames",
                   "64", "--device", "cpu"])

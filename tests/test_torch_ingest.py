@@ -128,9 +128,19 @@ def test_ingest_movies_batch_matches_jax(mode, h, w):
 
 
 def test_ingest_refuses_host_arrays_and_meshes():
-    rgb = rgb_frames((1, 1, 192, 140, 3), 6)
+    """A host array is refused; a CPU mesh of 2 ingests two shards equal to
+    the unsharded ingest, and refuses a batch it does not divide."""
+    rgb = rgb_frames((2, 1, 192, 140, 3), 6)
     with pytest.raises(TypeError, match="tensor"):
         mesh.ingest_movies_batch(rgb, VideoMode.DHGR, Palette.NTSC)
-    with pytest.raises(ValueError, match="multi-card batch sharding"):
-        mesh.ingest_movies_batch(torch.as_tensor(rgb), VideoMode.DHGR,
-                                 Palette.NTSC, mesh=2)
+    two = mesh.make_mesh(2, "cpu")
+    lanes, bytes_ = mesh.ingest_movies_batch(torch.as_tensor(rgb),
+                                             VideoMode.DHGR, Palette.NTSC)
+    s_lanes, s_bytes = mesh.ingest_movies_batch(
+        torch.as_tensor(rgb), VideoMode.DHGR, Palette.NTSC, mesh=two)
+    assert [len(x) for x in s_lanes] == [1, 1]
+    assert torch.equal(torch.cat(s_lanes), lanes)
+    assert torch.equal(torch.cat(s_bytes), bytes_)
+    with pytest.raises(ValueError, match="does not split"):
+        mesh.ingest_movies_batch(torch.as_tensor(rgb[:1]), VideoMode.DHGR,
+                                 Palette.NTSC, mesh=two)

@@ -57,38 +57,6 @@ def assert_same(got, want):
         assert g.shape == w.shape and np.array_equal(g, w)
 
 
-# --- chunked ----------------------------------------------------------------
-
-CHUNKED_CASES = [(DHGR, None, 2, 1), (DHGR, 7, 3, 1), (DHGR, 7, 2, 4),
-                 (HGR, 7, 2, 1)]
-
-
-def chunked_inputs(mode, j):
-    fmain, faux = random_frames(jm(mode), n_frames=6, seed=11)
-    plan, n_enc = jenc.plan_movie(
-        n_frames=6, n_audio_ticks=2400, input_frame_rate=36.0,
-        ticks_per_second=14700.0, every_n_video_frames=1, mode=jm(mode), k=8,
-        j=j)
-    assert n_enc == 6
-    return fmain, faux, plan
-
-
-@pytest.mark.parametrize("mode,seed,chunk,j", CHUNKED_CASES)
-def test_chunked_matches_unchunked_and_jax(mode, seed, chunk, j):
-    """The cases of tests/test_encoder.py's chunked test: records of every
-    plan step and both final banks equal the port's whole-movie encode and
-    the JAX package's chunked encode."""
-    fmain, faux, plan = chunked_inputs(mode, j)
-    got = encoder.encode_movie_chunked(torch_dist(mode), fmain, faux, plan,
-                                       mode, seed=seed, chunk_frames=chunk)
-    assert got[0].dtype == np.uint8
-    assert got[0].shape == (len(plan.step_frame), 8 * j, 6)
-    assert_same(got, whole_movie(fmain, faux, plan, mode, seed))
-    assert_same(got, jenc.encode_movie_chunked(
-        get_dist(jm(mode)), fmain, faux, plan, jm(mode), seed=seed,
-        chunk_frames=chunk))
-
-
 # --- streaming --------------------------------------------------------------
 
 @functools.lru_cache(None)
@@ -149,36 +117,6 @@ def test_streaming_hgr_has_no_aux_targets():
     assert_same(got[:4], jenc.encode_movie_streaming(
         get_dist(JVideoMode.HGR), batches(main, None, (2, 3)), plan,
         JVideoMode.HGR, seed=1, chunk_frames=2)[:4])
-
-
-@pytest.mark.parametrize("which", ["chunked", "streaming"])
-def test_joint_segments_match_unchunked_and_jax(which):
-    """Joint content through the segmented encoders (k=4, j=2)."""
-    main, aux = random_frames(JVideoMode.DHGR, 5, seed=8)
-    plan, _ = jenc.plan_movie(
-        n_frames=5, n_audio_ticks=1800, input_frame_rate=36.0,
-        ticks_per_second=14700.0, every_n_video_frames=1,
-        mode=JVideoMode.DHGR, k=4, j=2)
-    ref = whole_movie(main, aux, plan, DHGR, 2, joint=True)
-    assert not np.array_equal(ref[0], whole_movie(main, aux, plan, DHGR,
-                                                  2)[0])
-    jd = get_dist(JVideoMode.DHGR)
-    if which == "chunked":
-        got = encoder.encode_movie_chunked(
-            torch_dist(DHGR), main, aux, plan, DHGR, seed=2, chunk_frames=2,
-            joint=True)
-        want = jenc.encode_movie_chunked(
-            jd, main, aux, plan, JVideoMode.DHGR, seed=2, chunk_frames=2,
-            joint=True)
-    else:
-        got = encoder.encode_movie_streaming(
-            torch_dist(DHGR), batches(main, aux, (1, 4)), plan, DHGR, seed=2,
-            chunk_frames=2, joint=True)[:3]
-        want = jenc.encode_movie_streaming(
-            jd, batches(main, aux, (1, 4)), plan, JVideoMode.DHGR, seed=2,
-            chunk_frames=2, joint=True)[:3]
-    assert_same(got, ref)
-    assert_same(got, want)
 
 
 # --- the resumable encode ---------------------------------------------------
@@ -306,30 +244,6 @@ def test_movie_stream_source_matches_file_source_and_jax(tmp_path, mode):
                     dist=get_dist(jm(mode)))
     jmov.transcode(str(tmp_path / "jax.a2m"))
     assert open(str(tmp_path / "jax.a2m"), "rb").read() == data
-
-
-@pytest.mark.parametrize("mode,joint", [(DHGR, False), (HGR, False),
-                                        (DHGR, True)])
-def test_movie_takes_the_streaming_encoder_past_the_threshold(
-        tmp_path, monkeypatch, mode, joint):
-    """With STREAM_MIN_FRAMES lowered, the same in-memory clip takes
-    `encode_movie_streaming` (segments of 2 frames) and gives the same
-    bytes, final screens and targets."""
-    rgb = gradient_movie(F=10)
-    kw = dict(frames_source=rgb, video_mode=mode, dist=torch_dist(mode),
-              joint_content=joint, stream_chunk_frames=2)
-    m_whole, want = transcode(tmp_path, "whole.a2m", **kw)
-    assert m_whole.encoder_used == "whole"
-    monkeypatch.setattr(tmovie, "STREAM_MIN_FRAMES", 3)
-    m, got = transcode(tmp_path, "stream.a2m", **kw)
-    assert m.encoder_used == "streaming"
-    assert got == want
-    assert np.array_equal(m.final_main, m_whole.final_main)
-    assert np.array_equal(m.final_aux, m_whole.final_aux)
-    n = len(m.frames.targets_main)
-    assert n >= int(m.plan.step_frame.max()) + 1
-    assert np.array_equal(m.frames.targets_main,
-                          m_whole.frames.targets_main[:n])
 
 
 def test_movie_chunk_frames_gives_the_same_bytes(tmp_path):

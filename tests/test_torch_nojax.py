@@ -1,6 +1,9 @@
 """iivision_tpu_torch needs neither JAX nor the JAX package: its entry
-points import, and tiny DHGR and HGR yiq encodes, a B=2 batch encode with
-joint content, a batch ingest, a replay score, a host-ingest Movie through
+points import, and tiny DHGR and HGR yiq encodes, the host oracle, the
+reference-order greedy, the roofline, a B=2 batch encode with joint
+content (unsharded and over a CPU mesh of 2, with the parallel fetch and
+its future), a batch ingest, the sharded LUT build, compare_quantizers on
+the parity fixture, a replay score, a host-ingest Movie through
 the player VM (whole-movie and with `chunk_frames`), a streaming encode,
 the renderer, the CLI (with `--chunk_frames`), the sub-op microbenchmark
 and the delivery half (framing, retarget, seek, the server over a loopback
@@ -44,7 +47,8 @@ import iivision_tpu_torch
 import iivision_tpu_torch.cli
 import iivision_tpu_torch.make_tables
 from iivision_tpu_torch import audio, bench_subop, encoder, frames, quality
-from iivision_tpu_torch import render
+from iivision_tpu_torch import compare_quantizers, encoder_host
+from iivision_tpu_torch import encoder_parity, render, roofline
 from iivision_tpu_torch.movie import Movie
 from iivision_tpu_torch.ops import distance, dither, resize, yiq
 from iivision_tpu_torch.palettes import Palette
@@ -66,6 +70,20 @@ ops, main, aux = encoder.encode_movie(dist, lanes, bytes_tgt, plan, mode,
                                       seed=0)
 flat = encoder.flatten_ops(ops.numpy(), plan)
 assert flat.shape == (plan.n_ops, 6) and plan.n_ops > 0
+det, _, _ = encoder.encode_movie(dist, lanes, bytes_tgt, plan, mode,
+                                 seed=None)
+assert np.array_equal(encoder.flatten_ops(det.numpy(), plan),
+                      encoder_host.encode_movie_host(dist, lanes, bytes_tgt,
+                                                     plan, mode))
+plan1, _ = encoder.plan_movie(
+    n_frames=1, n_audio_ticks=300, input_frame_rate=30.0,
+    ticks_per_second=14700.0, every_n_video_frames=1, mode=mode, k=1)
+assert encoder_parity.encode_movie_reference_order(
+    dist, lanes, bytes_tgt, plan1, mode).shape == (plan1.n_ops, 6)
+cost = roofline.encode_cost(plan, mode, batch=2, shards=2)
+assert cost.chunk_starts == 2 * roofline.encode_cost(plan, mode).chunk_starts
+assert "bound" in roofline.report(plan, mode, 2, 0.01,
+                                  "NVIDIA H100 80GB HBM3")
 
 hgr = VideoMode.HGR
 dist = distance.ComputedDistance(hgr, Palette.NTSC, "yiq", device="cpu")
@@ -89,6 +107,19 @@ ops_b, _, _ = mesh.encode_movies_batch(dist, lanes_b, bytes_b, plan, mode,
                                        seeds=[0, 1], joint=True)
 flat_b = mesh.fetch_ops_compact(ops_b, plan)
 assert flat_b.shape == (2, plan.n_ops, 6)
+two = mesh.make_mesh(2, "cpu")
+s_lanes, s_bytes = mesh.ingest_movies_batch(clip, mode, Palette.NTSC,
+                                            mesh=two)
+s_ops, _, _ = mesh.encode_movies_batch(dist, s_lanes, s_bytes, plan, mode,
+                                       seeds=[0, 1], joint=True)
+assert np.array_equal(mesh.fetch_ops_parallel(s_ops, plan), flat_b)
+assert np.array_equal(mesh.fetch_ops_parallel_future(s_ops, plan).result(),
+                      flat_b)
+rows = mesh.build_tables_sharded(hgr, Palette.NTSC, two, n_rows=2)
+assert rows.shape == (2, 2 * 16384)
+cq_rows = compare_quantizers.compare("tests/fixtures/parity_frames.npz", hgr,
+                                     Palette.NTSC, n_frames=1, device="cpu")
+assert [name for name, _ in cq_rows] == ["ordered"]
 rep = quality.replay_frame_errors(flat_b[0], plan, lanes_b[0], mode, dist)
 assert rep.mean_error > 0
 recs = bench_subop.run("cpu", B=1, K=2, ts=(2,),

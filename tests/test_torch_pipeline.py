@@ -1,6 +1,7 @@
 """iivision_tpu_torch end to end on the CPU: Movie against the JAX
-package's Movie (DHGR and HGR), the FFT resample against the JAX one, and
-the CLI (DHGR, HGR, and the yiq and mono colour models)."""
+package's Movie (DHGR and HGR; its file and its object-level stream), the
+FFT resample against the JAX one, and the CLI (DHGR, HGR, the yiq and mono
+colour models, and the `--mesh` clamp)."""
 
 import json
 import os
@@ -78,6 +79,30 @@ def check_movie_matches_jax(tmp_path, mode):
     check_stream(data, tm, tm.audio.levels())
 
 
+@pytest.mark.parametrize("mode", [VideoMode.DHGR, VideoMode.HGR])
+def test_emit_stream_equals_the_file(tmp_path, mode):
+    """Movie.emit_stream, the object-level stream through StreamFramer
+    (encoder.ops_to_ticks), gives the bytes Movie.transcode writes with
+    the C++ emitter, and the JAX package's Movie.emit_stream."""
+    rgb = gradient_movie(F=4)
+    tone = (np.sin(2 * np.pi * 440 * np.arange(4410) / 4410)
+            * 16000).astype(np.float32)
+    kw = dict(frames_source=rgb, every_n_video_frames=2, k=8, seed=3)
+    tm = Movie(audio_source=taudio.Audio(data=tone, rate=14700,
+                                         bitrate=14700, device="cpu"),
+               device="cpu", video_mode=mode, **kw)
+    chunks = list(tm.emit_stream())
+    assert len(chunks) > 1 and all(isinstance(c, bytes) for c in chunks)
+    path = str(tmp_path / "torch.a2m")
+    tm.transcode(path)
+    data = b"".join(chunks)
+    assert data == open(path, "rb").read()
+    jmov = JaxMovie(audio_source=jaudio.Audio(data=tone, rate=14700,
+                                              bitrate=14700),
+                    dist=get_dist(jm(mode)), video_mode=jm(mode), **kw)
+    assert data == b"".join(jmov.emit_stream())
+
+
 def test_resample_fft_matches_jax():
     """torch.fft against jnp.fft on 1 s of 44.1 kHz audio resampled to
     14,700 Hz.  complex64 FFTs in two libraries sum in different orders,
@@ -106,15 +131,28 @@ def test_resample_fft_matches_jax():
     (["--mesh", "2"], "--mesh"),
     (["b.npy", "--mesh", "4"], "--mesh"),
 ])
-def test_cli_refuses_unported_flags(capsys, extra, flag):
-    """A mesh of more than one card is refused, solo and batch, naming its
-    ROADMAP item; several inputs, --joint_content and --chunk_frames are
-    ported."""
-    with pytest.raises(SystemExit) as e:
-        cli.main(["a.npy"] + extra + ["--device", "cpu"])
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    assert flag in err and "ROADMAP.md" in err
+def test_cli_refuses_unported_flags(monkeypatch, extra, flag):
+    """--mesh is ported (iivision_tpu/cli.py `_group_mesh`): a solo input
+    is a group of one and runs unsharded, and a group's mesh is the
+    request clamped to the host's cards and then to the largest divisor of
+    the group's size; 'auto' is every card, one for the CPU."""
+    args = cli.build_parser().parse_args(["a.npy"] + extra
+                                         + ["--device", "cpu"])
+    got = cli._group_mesh(getattr(args, flag[2:]), len(args.input),
+                          args.device)
+    assert got == (None if len(args.input) == 1
+                   else (torch.device("cpu"),) * 2)
+    cpu = torch.device("cpu")
+    for arg, size, n in (("4", 6, 3), ("5", 4, 4), ("3", 4, 2), ("7", 7, 7),
+                         ("2", 3, 1), ("auto", 4, 1), (None, 4, 1)):
+        want = None if n == 1 else (cpu,) * n
+        assert cli._group_mesh(arg, size, "cpu") == want, (arg, size)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    cards = (torch.device("cuda", 0), torch.device("cuda", 1))
+    assert cli._group_mesh("auto", 4, "cuda") == cards
+    assert cli._group_mesh("8", 6, "cuda") == cards
+    assert cli._group_mesh("auto", 3, "cuda") is None
 
 
 def test_cli_cuda_without_a_card_raises(tmp_path, monkeypatch):
