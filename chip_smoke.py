@@ -18,7 +18,11 @@ the card, bit-equal:
   sub-ops);
 - the body kernel, default and joint content, on real plan bodies with
   padded steps and a partial step (DHGR k=8 j=1 and k=16 j=4, HGR k=8 j=1
-  with its 256 contents, B = 1 and 32, seeded and deterministic), on
+  with its 256 contents, B = 1 and 32, seeded and deterministic; the
+  default rule also at every other setting the bench runs: DHGR (k, j) =
+  (32, 10), (32, 1), (1, 1), (16, 8), (32, 4) and (32, 8) at B = 1 and 32,
+  DHGR (16, 4) at B = 10 and 16, HGR (16, 4) at B = 1, 10 and 32, seeded
+  and deterministic), on
   tie-heavy bodies whose every page and offset choice falls to the nonces,
   and for joint content on bodies whose contents tie (dw all zero, or one
   cost for every content);
@@ -37,18 +41,21 @@ after it:
 
 - 10 s DHGR clips at (k=8, j=1) and (k=16, j=4), and a 10 s HGR clip at
   (k=8, j=1), through Movie.transcode and the player VM;
-- the full DHGR NTSC LUT (make_tables' path), then its first 1024 rows
-  per lane through `build_tables_sharded` over (cuda:0, cuda:0), equal to
-  the full LUT's rows;
+- the full DHGR NTSC LUT (make_tables' path: the bench's lut_dhgr_ntsc,
+  whose checks are a zero diagonal, sampled blocks symmetric, sampled rows
+  against plain and cells against the scalar Damerau-Levenshtein), then
+  its first 1024 rows per lane through `build_tables_sharded` over
+  (cuda:0, cuda:0), equal to the full LUT's rows;
 - the sub-op microbenchmark's T sweep (bench_subop.run);
 - 2 s clips in the yiq colour model (DHGR and HGR: the chunk-start
   kernel's yiq instantiation) and the mono model (HGR); the mono clip
   builds its store-cost table on the card, and sampled rows of that table
   are held against the plain build;
-- the batch transcode: 32 distinct 10 s clips (`synth_clip`, one phase
-  each) through ingest_movies_batch, encode_movies_batch at k=16 j=4,
-  fetch_ops_compact and emit; every stream through the player VM, and
-  movies 0 and 31 byte-equal to their solo encodes;
+- the batch transcode (the bench's batch_dhgr_b32_10s_k16_j4): 32
+  distinct 10 s clips made on the card through ingest_movies_batch,
+  encode_movies_batch at k=16 j=4, fetch_ops_compact and emit; every
+  stream through the player VM to the encoder's final screens, and movies
+  0 and 31 byte-equal to their solo encodes;
 - the same batch sharded over the mesh (cuda:0, cuda:0): two shards of 16
   movies, each ingested, encoded and fetched (`fetch_ops_parallel`) in a
   host thread and a CUDA stream of its own; every stream and final screen
@@ -93,6 +100,14 @@ after it:
   DHGR at k=8 j=1, 1 s HGR at k=4 j=3, 0.25 s DHGR joint at k=16 j=4 -
   equal op for op, with their final screens, to `encoder_host`'s
   `encode_movie_host` and a `HostEncoder` replay.
+- the bench (`python -m iivision_tpu_torch.bench --reps 1`, in this
+  process, on one shared bench Context): every configuration at full
+  size - the LUT and the batch above among them, each run once - each its
+  own counted path (warm-up, one timed rep, one traced rep), its record
+  summarised in one `bench:` line; a record that fails a check (VM
+  validity, the pipelined streams against one-shot ones, the 80 s stream
+  on the 6502 machine, LUT rows against plain, launches against the
+  roofline model) fails the run.
 From its second clip on, a mode's 10 s path passes the first clip's
 distance model to `Movie(dist=...)`.  Every whole-movie clip, the batch
 and the mesh batch print a `roofline[...]` line (`roofline.report` on the
@@ -208,7 +223,7 @@ def main():
               "needs a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from iivision_tpu_torch import _build, bench_subop
+    from iivision_tpu_torch import _build, bench, bench_subop
     from iivision_tpu_torch.video_mode import VideoMode
 
     dev = torch.device("cuda", 0)
@@ -252,8 +267,10 @@ def main():
     totals = {name: 0 for name in KERNELS}
     dists = {}  # (mode, colour model) -> the first clip's distance model
     results = {}  # path -> what it returned, for the path after it
+    ran = set()  # the bench's configurations run among the paths
     with tempfile.TemporaryDirectory() as cache:
         os.environ["XDG_CACHE_HOME"] = cache
+        bench_ctx = bench.Context(dev, 0, b)  # shared distance models
         for path, want, fn, args, kw in (
                 ("dhgr_10s_k8_j1", enc, run_movie,
                  (dev, dists, dhgr, 8, 1, 10), {}),
@@ -261,11 +278,11 @@ def main():
                  (dev, dists, dhgr, 16, 4, 10), {}),
                 ("hgr_10s_k8_j1", enc, run_movie,
                  (dev, dists, hgr, 8, 1, 10), {}),
-                ("lut_dhgr_ntsc", ("editdist_tile",), build_and_check_lut,
-                 (dev,), {}),
+                ("bench:lut_dhgr_ntsc", ("editdist_tile",), run_bench_config,
+                 ("lut_dhgr_ntsc", bench_ctx), {}),
                 ("lut_dhgr_ntsc_sharded", ("editdist_tile",),
-                 lambda: run_lut_sharded(dev, results.pop("lut_dhgr_ntsc")),
-                 (), {}),
+                 lambda: run_lut_sharded(
+                     dev, results.pop("bench:lut_dhgr_ntsc")), (), {}),
                 ("bench_subop", ("subop_bench",), run_bench,
                  (dev, bench_subop, report), {}),
                 ("dhgr_2s_yiq", yiq, run_movie, (dev, dists, dhgr, 8, 1, 2),
@@ -274,10 +291,12 @@ def main():
                  dict(colour_model="yiq")),
                 ("hgr_2s_mono", enc + ("lane_dist",), run_mono,
                  (dev, dists, hgr), {}),
-                ("batch_dhgr_b32_10s_k16_j4", enc, run_batch, (dev,), {}),
+                ("bench:batch_dhgr_b32_10s_k16_j4", enc, run_bench_config,
+                 ("batch_dhgr_b32_10s_k16_j4", bench_ctx), {}),
                 ("batch_dhgr_b32_10s_k16_j4_mesh2", enc,
                  lambda: run_batch_mesh(
-                     dev, results.pop("batch_dhgr_b32_10s_k16_j4")), (), {}),
+                     dev, results.pop("bench:batch_dhgr_b32_10s_k16_j4")),
+                 (), {}),
                 ("batch_cli_mixed", enc, run_cli_mixed, (dev,), {}),
                 ("quality_dhgr_5s_k16_j4",
                  enc + ("lane_dist", "encode_body_joint"), run_quality,
@@ -304,10 +323,21 @@ def main():
             if path == "delivery_dhgr_10s_k16_j4":
                 build_machine()
             out, launches = counted(path, want, fn, *args, **kw)
-            if path in ("lut_dhgr_ntsc", "batch_dhgr_b32_10s_k16_j4"):
+            if path.startswith("bench:"):
                 results[path] = out  # the next path's input
+                ran.add(path)
             for name, n in launches.items():
                 totals[name] += n
+        # the bench's other configurations
+        t0 = time.time()
+        for path, want in bench_paths():
+            if "bench:" + path in ran:
+                continue  # ran above, feeding the path after it
+            _, launches = counted("bench:" + path, want, run_bench_config,
+                                  path, bench_ctx)
+            for name, n in launches.items():
+                totals[name] += n
+        print("bench_s=%.1f" % (time.time() - t0))
         del os.environ["XDG_CACHE_HOME"]
     print("main path launches: %s" % json.dumps(totals))
     t0 = time.time()
@@ -845,13 +875,23 @@ def check_threefry(dev, report):
 
 def pick_body(plan) -> int:
     """First step of the first body that holds both a padded step (nvalid
-    0) and a partial one (0 < nvalid < k * j)."""
+    0) and a partial one (0 < nvalid < k * j); where no body has both (a
+    body of one step at k=32 j=10, no partial step at k=1 j=1), the first
+    that holds a partial step, else the first that holds a padded one."""
     Sc, full = plan.chunk_steps, plan.k * plan.j
-    for b0 in range(0, len(plan.step_nvalid), Sc):
-        nv = plan.step_nvalid[b0:b0 + Sc]
-        if (nv == 0).any() and ((nv > 0) & (nv < full)).any():
-            return b0
-    raise AssertionError("no body with padded and partial steps")
+    bodies = [(b0, plan.step_nvalid[b0:b0 + Sc])
+              for b0 in range(0, len(plan.step_nvalid), Sc)]
+    def padded(nv):
+        return (nv == 0).any()
+
+    def partial(nv):
+        return ((nv > 0) & (nv < full)).any()
+
+    for want in (lambda nv: padded(nv) and partial(nv), partial, padded):
+        for b0, nv in bodies:
+            if want(nv):
+                return b0
+    raise AssertionError("no body with a padded or a partial step")
 
 
 def body_inputs(dev, mode, k: int, j: int, B: int, seed: int,
@@ -892,12 +932,24 @@ def body_inputs(dev, mode, k: int, j: int, B: int, seed: int,
     return plan, b0, state, lanes, bytes_tgt, table, nvalid, ops
 
 
+# (mode name, k, j, batch sizes) of the body kernel on the bench's paths
+# beyond the smoke's own
+BENCH_BODIES = (("DHGR", 32, 10, (1, 32)), ("DHGR", 32, 1, (1, 32)),
+                ("DHGR", 1, 1, (1, 32)), ("DHGR", 16, 8, (1, 32)),
+                ("DHGR", 32, 4, (1, 32)), ("DHGR", 32, 8, (1, 32)),
+                ("DHGR", 16, 4, (10, 16)), ("HGR", 16, 4, (1, 10, 32)))
+
+
 def check_body(dev, report, joint: bool = False):
     """The body kernel against encode_body_plain (the per-step torch loop
     with the plain sub-op chain and step_nonces), state and records
     bit-equal, on real plan bodies that hold padded and partial steps:
     DHGR k=8 j=1 and k=16 j=4, HGR k=8 j=1 (256 contents), B = 1 and 32,
-    seeded and deterministic, and tie-heavy bodies (every up equal).
+    seeded and deterministic, and tie-heavy bodies (every up equal); and
+    the bench's settings (BENCH_BODIES): DHGR (32, 10), (32, 1), (1, 1),
+    (16, 8), (32, 4) and (32, 8) at B = 1 and 32, DHGR (16, 4) at B = 10
+    and 16, and HGR (16, 4) at B = 1, 10 and 32, seeded and
+    deterministic.
     joint: the kernel's joint instantiation (its own entry), timed at DHGR
     k=16 j=4 (the quality clip's setting) B = 1 and 32 and on HGR, plus
     bodies whose contents tie: dw all zero (no companion gain: the
@@ -932,7 +984,16 @@ def check_body(dev, report, joint: bool = False):
         (H, 8, 1, 32, True, None, "_hgr_b32"),
         (D, 8, 1, 32, True, "tie", "_tie_b32"),
         (D, 16, 4, 32, True, "tie", "_tie_b32_k16_j4"),
-        (H, 8, 1, 1, False, "tie", "_tie_hgr_det"))
+        (H, 8, 1, 1, False, "tie", "_tie_hgr_det"),
+        # the bench's settings: the solo headline (every warp runs a
+        # slot), the k/j sweep's, HGR at k=16 j=4 (its BASELINE configs
+        # and B=10 batch), and the B=10 and 16 DHGR batches
+        *((mode, k, j, B, seeded, None, "%s_k%d_j%d%s%s" % (
+            "_hgr" if mode == H else "", k, j, "_b%d" % B if B > 1 else "",
+            "" if seeded else "_det"))
+          for name_, k, j, batches in BENCH_BODIES
+          for mode in (VideoMode[name_],)
+          for B in batches for seeded in (True, False)))
     for mode, k, j, B, seeded, kind, tag in cases:
         plan, b0, state, lanes, bytes_tgt, table, nvalid, ops = body_inputs(
             dev, mode, k, j, B, 50 + len(entry) + 100 * joint, kind == "tie")
@@ -1298,28 +1359,6 @@ def gradient_clip(frames: int = 300, h: int = 192, w: int = 140):
     return np.stack([r, g, b], axis=-1).astype(np.uint8)
 
 
-def build_lut(dev):
-    """The LUT entry point: the full DHGR NTSC 4 x 8192^2 uint16 table
-    through kernel A."""
-    import torch
-
-    from iivision_tpu_torch.ops import editdist
-    from iivision_tpu_torch.palettes import Palette
-    from iivision_tpu_torch.video_mode import VideoMode
-
-    torch.cuda.synchronize()
-    t0 = time.time()
-    tables = editdist.build_tables(VideoMode.DHGR, Palette.NTSC, dev)
-    torch.cuda.synchronize()
-    build_s = time.time() - t0
-    print("LUT DHGR NTSC: shape=%s dtype=%s MB=%d build_s=%.3f" % (
-        tuple(tables.shape), tables.dtype,
-        tables.numel() * 2 // (1 << 20), build_s))
-    codes = [editdist.lane_codes(VideoMode.DHGR, lane, dev)
-             for lane in range(4)]
-    return tables, codes, editdist.cost_matrix(Palette.NTSC, dev), build_s
-
-
 def write_tone(path, seconds: int):
     """A 440 Hz tone at 44.1 kHz, int16, as a WAV file."""
     import numpy as np
@@ -1521,139 +1560,65 @@ def check_vm(data, n_ops, levels, finals, what):
                                  "at %s" % (what, name, np.argwhere(~eq)[:5]))
 
 
-def run_batch(dev, B: int = 32, seconds: float = 10.0):
-    """The batch transcode at the JAX benchmark's headline setting: B
-    distinct synthetic 280x192 clips (every 2nd frame), device ingest,
-    one lockstep encode at k=16 j=4 with seeds 0..B-1, compact fetch and
-    emit.  Every stream plays in the player VM; movies 0 and B-1 equal
-    their solo encodes byte for byte."""
-    import numpy as np
-    import torch
-
-    from iivision_tpu_torch import encoder
-    from iivision_tpu_torch.ops import distance
-    from iivision_tpu_torch.palettes import Palette
-    from iivision_tpu_torch.parallel import mesh
-    from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
-    from iivision_tpu_torch.video_mode import VideoMode
-
-    mode = VideoMode.DHGR
-    t0 = time.time()
-    src = synth_clips(B, seconds, every_n=2)
-    synth_s = time.time() - t0
-    aud = tone_levels(dev, seconds)
-    levels = np.asarray(aud.levels())
-    plan, n_enc = encoder.plan_movie(
-        n_frames=int(seconds * 30), n_audio_ticks=len(levels),
-        input_frame_rate=30.0, ticks_per_second=14700.0,
-        every_n_video_frames=2, mode=mode, k=16, j=4)
-    dist = distance.ComputedDistance(mode, Palette.NTSC, device=dev)
-    levels = levels[:plan.n_ops]
-    S = len(plan.step_frame)
-
-    torch.cuda.synchronize()
-    t0 = time.time()
-    lanes_b, bytes_b = mesh.ingest_movies_batch(
-        torch.as_tensor(src[:, :n_enc]).to(dev), mode, Palette.NTSC)
-    torch.cuda.synchronize()
-    t1 = time.time()
-    before = enc_launches()
-    ops_b, main_b, aux_b = mesh.encode_movies_batch(
-        dist, lanes_b, bytes_b, plan, mode, seeds=list(range(B)))
-    torch.cuda.synchronize()
-    t2 = time.time()
-    launched = tuple(a - b for a, b in zip(enc_launches(), before))
-    flat_b = mesh.fetch_ops_compact(ops_b, plan)
-    streams = [emit_stream_fast(flat_b[i], levels, mode) for i in range(B)]
-    t3 = time.time()
-    wall = t3 - t0
-    movie_s = plan.n_ops / 14700.0
-    main_np, aux_np = main_b.cpu().numpy(), aux_b.cpu().numpy()
-    for i, data in enumerate(streams):
-        check_vm(data, plan.n_ops, levels,
-                 [("main", main_np[i]), ("aux", aux_np[i])],
-                 "batch movie %d" % i)
-    t4 = time.time()
-    for i in (0, B - 1):
-        solo, _, _ = encoder.encode_movie(dist, lanes_b[i], bytes_b[i],
-                                          plan, mode, seed=i)
-        solo = encoder.flatten_ops(solo.cpu().numpy(), plan)
-        if not np.array_equal(solo, flat_b[i]):
-            raise AssertionError("batch movie %d differs from its solo "
-                                 "encode" % i)
-    print("batch DHGR B=%d %gs k=16 j=4: n_ops=%d plan_steps=%d "
-          "synth_s=%.3f ingest_s=%.3f encode_s=%.3f fetch_emit_s=%.3f "
-          "total_s=%.3f realtime_x=%.3f counted_launches_per_step=%.3f "
-          "vm_check_s=%.3f solo_check_s=%.3f; %d streams VM-valid, movies "
-          "0 and %d equal their solo encodes"
-          % (B, seconds, plan.n_ops, S, synth_s, t1 - t0, t2 - t1, t3 - t2,
-             wall, B * movie_s / wall, sum(launched) / S, t4 - t3,
-             time.time() - t4, B, B - 1))
-    roofline_line("batch B=%d" % B, dev, plan, mode, B, t2 - t1, launched)
-    return dict(src=src, n_enc=n_enc, plan=plan, dist=dist, levels=levels,
-                streams=streams, main=main_np, aux=aux_np, ingest_s=t1 - t0,
-                encode_s=t2 - t1, fetch_emit_s=t3 - t2, total_s=wall,
-                realtime_x=B * movie_s / wall)
-
-
 def run_batch_mesh(dev, base):
-    """The same batch on the mesh (cuda:0, cuda:0): two shards of 16
-    movies on one card, each ingested, encoded (seeds 0..B-1 in batch
-    order) and fetched in a host thread of its own under a CUDA stream of
-    its own, then emitted.  Every stream and final screen must equal the
-    unsharded phase's (`base`, run_batch's result); the wall time and
-    `realtime_x` print beside that phase's, and each shard launches its
-    own chunk starts and bodies."""
-    import numpy as np
+    """The bench's B=32 batch (`base` = its batch_dhgr_b32_10s_k16_j4
+    record and last rep's output) again on the mesh (cuda:0, cuda:0): the
+    same movies made anew on the card from the same seed, two shards of 16
+    movies, each ingested, encoded (the same seeds in batch order) and
+    fetched in a host thread of its own under a CUDA stream of its own,
+    then emitted.  Every stream and final screen must equal the unsharded
+    batch's; the wall time and `realtime_x` print beside its medians, and
+    each shard launches its own chunk starts and bodies."""
     import torch
 
+    from iivision_tpu_torch import bench
     from iivision_tpu_torch.palettes import Palette
     from iivision_tpu_torch.parallel import mesh
-    from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
-    from iivision_tpu_torch.video_mode import VideoMode
 
-    mode = VideoMode.DHGR
+    rec, out = base
+    bs, seed = out["setup"], out["seed"]
+    B, plan, mode = bs.B, bs.plan, bench.DHGR
     two = mesh.as_mesh((dev, dev))
-    src, plan, levels = base["src"], base["plan"], base["levels"]
-    B = len(src)
+    src = bench.synth_movies_device(B, bs.F, seed, dev)
     torch.cuda.synchronize()
     t0 = time.time()
-    lanes_s, bytes_s = mesh.ingest_movies_batch(
-        torch.as_tensor(src[:, :base["n_enc"]]).to(dev), mode, Palette.NTSC,
-        mesh=two)
+    lanes_s, bytes_s = mesh.ingest_movies_batch(src, mode, Palette.NTSC,
+                                                mesh=two)
     torch.cuda.synchronize()
     t1 = time.time()
     before = enc_launches()
     ops_s, main_s, aux_s = mesh.encode_movies_batch(
-        base["dist"], lanes_s, bytes_s, plan, mode, seeds=list(range(B)),
-        mesh=two)
+        bs.dist, lanes_s, bytes_s, plan, mode,
+        seeds=list(range(seed, seed + B)), mesh=two)
     torch.cuda.synchronize()
     t2 = time.time()
     launched = tuple(a - b for a, b in zip(enc_launches(), before))
     flat = mesh.fetch_ops_parallel(ops_s, plan)
-    streams = [emit_stream_fast(flat[i], levels, mode) for i in range(B)]
+    streams = bs.emit(flat, out["levels"])
     t3 = time.time()
     wall = t3 - t0
-    realtime_x = B * plan.n_ops / 14700.0 / wall
+    realtime_x = bs.movie_seconds / wall
     if [len(x) for x in ops_s] != [B // 2, B // 2]:
         raise AssertionError("mesh shards of %s movies"
                              % [len(x) for x in ops_s])
-    bad = [i for i in range(B) if streams[i] != base["streams"][i]]
+    bad = [i for i in range(B) if streams[i] != out["streams"][i]]
     if bad:
         raise AssertionError("mesh batch movies %s differ from the unsharded "
                              "batch" % bad[:8])
-    if not (np.array_equal(torch.cat(main_s).cpu().numpy(), base["main"])
-            and np.array_equal(torch.cat(aux_s).cpu().numpy(), base["aux"])):
+    if not (torch.equal(torch.cat(main_s), out["main"])
+            and torch.equal(torch.cat(aux_s), out["aux"])):
         raise AssertionError("mesh batch final screens differ from the "
                              "unsharded batch")
+    med = {k: v["median"] for k, v in rec["timings"].items()}
     print("batch DHGR B=%d mesh=2 (cuda:0 twice) k=16 j=4: ingest_s=%.3f "
           "encode_s=%.3f fetch_emit_s=%.3f total_s=%.3f realtime_x=%.3f; "
-          "unsharded ingest_s=%.3f encode_s=%.3f fetch_emit_s=%.3f "
-          "total_s=%.3f realtime_x=%.3f; %d streams and finals byte-equal "
-          "to the unsharded batch" % (
+          "unsharded (the bench's, synth apart) ingest_s=%.3f encode_s=%.3f "
+          "fetch_emit_s=%.3f total_s=%.3f realtime_x=%.3f; %d streams and "
+          "finals byte-equal to the unsharded batch" % (
               B, t1 - t0, t2 - t1, t3 - t2, wall, realtime_x,
-              base["ingest_s"], base["encode_s"], base["fetch_emit_s"],
-              base["total_s"], base["realtime_x"], B))
+              med["ingest_s"], med["encode_s"], med["fetch_emit_s"],
+              med["total_s"] - med["synth_s"],
+              bs.movie_seconds / (med["total_s"] - med["synth_s"]), B))
     roofline_line("mesh batch B=%d over 2 shards" % B, dev, plan, mode, B,
                   t2 - t1, launched, shards=2)
 
@@ -2547,26 +2512,20 @@ def trace_mesh(dist, lanes_b, bytes_b, mode, seconds: float):
               len(spans), launches, 1 - union / total if total else 0.0))
 
 
-def build_and_check_lut(dev):
-    """The LUT entry point: the full DHGR NTSC 4 x 8192^2 uint16 table
-    through kernel A, then its checks.  Returns (the table, build_s)."""
-    tables, codes, sub, build_s = build_lut(dev)
-    check_lut(dev, tables, codes, sub)
-    return tables, build_s
-
-
 def run_lut_sharded(dev, lut, n_rows: int = 1024):
     """build_tables_sharded on DHGR NTSC over the mesh (cuda:0, cuda:0):
     the first `n_rows` rows of every lane in two row blocks, each kernel
     A's general tile against all 8192 codes.  Every lane must equal the
-    same rows of the full LUT that `lut` = (table, build_s) holds."""
+    same rows of the full LUT that `lut` = (the bench's lut_dhgr_ntsc
+    record, its table) holds."""
     import torch
 
     from iivision_tpu_torch.palettes import Palette
     from iivision_tpu_torch.parallel import mesh
     from iivision_tpu_torch.video_mode import VideoMode
 
-    tables, full_s = lut
+    rec, tables = lut
+    full_s = rec["timings"]["tablegen_s"]["median"]
     n = 8192
     build_s = []  # the first call in the process, then a second one
     for _ in range(2):
@@ -2664,50 +2623,56 @@ def run_host_oracle(dev, mode_name: str, k: int, j: int, seconds: float,
                              oracle_s, replay_s))
 
 
-def check_lut(dev, tables, codes, sub):
-    """Symmetry on sampled blocks, zero diagonal, 64 sampled rows against
-    plain on the card, 20 cells against the scalar Damerau-Levenshtein."""
-    import numpy as np
-    import torch
+def bench_paths():
+    """(configuration, kernels it must launch) of every configuration of
+    `python -m iivision_tpu_torch.bench`, in its order: the encodes launch
+    the chunk-start and body kernels, the yiq one the chunk start's yiq
+    instantiation; those scored by replay launch the lane distance, the
+    LUT builds kernel A's tile."""
+    from iivision_tpu_torch import bench
 
-    from iivision_tpu_torch.ops import editdist
+    enc = ("chunk_start", "encode_body")
+    scored = enc + ("lane_dist",)
+    special = {
+        "dhgr_ntsc_yiq": ("chunk_start_yiq", "encode_body", "lane_dist"),
+        "lut_dhgr_ntsc": ("editdist_tile",),
+        "hgr_tablegen": ("editdist_tile",),
+        "batch10_plus_tablegen": enc + ("editdist_tile",),
+    }
+    for name, entry in bench.all_configs().items():
+        if name in special:
+            yield name, special[name]
+        elif (entry.group == "k_sweep" or name.startswith(("hgr_ntsc",
+                                                           "dhgr_ntsc",
+                                                           "dhgr_iigs"))):
+            yield name, scored
+        else:
+            yield name, enc
 
-    n = codes[0].shape[0]
-    full = tables.view(torch.int16).view(len(codes), n, n)
-    rng = np.random.RandomState(5)
-    diag = torch.arange(n, device=dev)
-    for lane in range(len(codes)):
-        t = full[lane]
-        if int(t[diag, diag].abs().max()) != 0:
-            raise AssertionError("lane %d: non-zero diagonal" % lane)
-        for _ in range(4):
-            r0, c0 = rng.randint(0, n - 256, 2)
-            blk = t[r0:r0 + 256, c0:c0 + 256]
-            tr = t[c0:c0 + 256, r0:r0 + 256].T
-            if not torch.equal(blk, tr):
-                raise AssertionError("lane %d: not symmetric" % lane)
-    rows = torch.as_tensor(rng.randint(0, n, 64), device=dev)
-    worst = 0
-    for lane in range(len(codes)):
-        want = editdist.dp_distance_tile(codes[lane][rows[lane::4]],
-                                         codes[lane], sub)
-        if int(want.max()) >= 1 << 16:
-            raise AssertionError("distances overflow uint16")
-        got = full[lane][rows[lane::4]].to(torch.int32) & 0xFFFF
-        worst = max(worst, int((got - want).abs().max()))
-    sub_np = sub.cpu().numpy()
-    for _ in range(20):
-        lane, i, jx = rng.randint(0, len(codes)), *rng.randint(0, n, 2)
-        cn = codes[lane].cpu().numpy()
-        want = editdist.dam_lev_scalar(list(cn[i]), list(cn[jx]), sub_np)
-        got = int(full[lane, i, jx]) & 0xFFFF
-        if want != got:
-            raise AssertionError("cell (%d, %d, %d): %d vs scalar %s" % (
-                lane, i, jx, got, want))
-    print("LUT checks: symmetric, zero diagonal, 64 rows vs plain "
-          "max_abs_err=%d, 20 cells vs dam_lev_scalar equal" % worst)
-    if worst:
-        raise AssertionError("LUT rows disagree with plain")
+
+def run_bench_config(name, ctx):
+    """`python -m iivision_tpu_torch.bench --reps 1 --only NAME` in this
+    process, on the smoke's shared bench Context: prints one summary line
+    and fails unless the record passed.  Returns (the record, the last
+    timed rep's output)."""
+    from iivision_tpu_torch import bench
+
+    keep = {}
+    rec = bench.run_case(name, bench.all_configs()[name], ctx, 1, keep=keep)
+    timings = rec.get("timings", {})
+    rate = [k for k in timings if timings[k]["unit"] == "x_realtime"]
+    trace = rec.get("trace")
+    print("bench: %s ok=%s wall_s=%s %s busy_share=%s checks=%s%s" % (
+        rec["name"], rec["ok"],
+        "%.4f" % timings["wall_s"]["median"] if timings else "-",
+        " ".join("%s=%.3f" % (k, timings[k]["median"]) for k in rate),
+        trace.get("busy_share") if isinstance(trace, dict) else trace,
+        json.dumps({k: v for k, v in rec.get("checks", {}).items()
+                    if not isinstance(v, (list, dict))}),
+        " error=" + rec["error"] if "error" in rec else ""))
+    if not rec["ok"]:
+        raise AssertionError("bench configuration %s failed" % name)
+    return rec, keep["out"]
 
 
 if __name__ == "__main__":

@@ -67,9 +67,15 @@ DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(
 
 def require_device(device) -> torch.device:
     """`device` as a torch.device; a CUDA device without a usable card
-    raises instead of running anywhere else."""
+    raises instead of running anywhere else.  A bare "cuda" names the
+    current card by its index, as the tensors made there name it, so that
+    devices compare equal to their tensors' (`dist.device ==
+    lanes.device`)."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device %s requested but torch.cuda.is_available()"
-                           " is false" % dev)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device %s requested but "
+                               "torch.cuda.is_available() is false" % dev)
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

@@ -32,7 +32,7 @@ import os
 import numpy as np
 import torch
 
-from iivision_tpu_torch import DATA_DIR, palettes
+from iivision_tpu_torch import DATA_DIR, palettes, require_device
 from iivision_tpu_torch.palettes import Palette, require_palette
 from iivision_tpu_torch.screen import hgr_to_dots, spec_for_mode
 from iivision_tpu_torch.video_mode import VideoMode, require_mode
@@ -295,11 +295,11 @@ class ComputedDistance:
         self.mode = require_mode(mode)
         self.palette = require_palette(palette)
         self.model = model
-        self.device = torch.device(device)
         self.n_contents = n_contents(mode)
         self.sub = torch.as_tensor(
-            sub_for(mode, palette, model).astype(np.int32),
-            device=self.device)
+            sub_for(mode, palette, model).astype(np.int32), device=device)
+        # the tensors' own device: a bare "cuda" names its card's index
+        self.device = self.sub.device
         self.store_cost16 = torch.as_tensor(
             store_cost_table(mode, palette, model, self.device),
             device=self.device)
@@ -308,7 +308,7 @@ class ComputedDistance:
         """The same model on `device`: this one if it is there already,
         else a copy whose tensors are copied over (nothing is rebuilt or
         reloaded).  A mesh's `replicate` gives each entry one."""
-        device = torch.device(device)
+        device = require_device(device)
         if device == self.device:
             return self
         out = copy.copy(self)

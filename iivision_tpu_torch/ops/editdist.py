@@ -386,15 +386,25 @@ def edit_distance_matrix(mode: VideoMode, palette: Palette, lane: int,
     return pair_distance(codes, codes, cost_matrix(palette, device), out)
 
 
-def build_tables(mode: VideoMode, palette: Palette,
-                 device) -> torch.Tensor:
+def build_tables(mode: VideoMode, palette: Palette, device,
+                 n_rows=None) -> torch.Tensor:
     """(n_lanes, N*N) uint16 LUTs of a video mode on `device`, indexed by
     (src << MASKED_BITS) + tgt (iivision_tpu/ops/editdist.py `build_tables`).
-    Each lane's kernel launch writes straight into its slice."""
+    Each lane's kernel launch writes straight into its slice.  n_rows:
+    only each lane's first n_rows rows, (n_lanes, n_rows*N), through the
+    general all-pairs tile (the whole table takes the symmetric one)."""
     spec = spec_for_mode(mode)
     n = 1 << spec.MASKED_BITS
-    out = torch.empty((spec.N_LANES, n, n), dtype=torch.uint16,
+    if n_rows is None:
+        out = torch.empty((spec.N_LANES, n, n), dtype=torch.uint16,
+                          device=device)
+        for lane in range(spec.N_LANES):
+            edit_distance_matrix(mode, palette, lane, device, out[lane])
+        return out.reshape(spec.N_LANES, n * n)
+    out = torch.empty((spec.N_LANES, n_rows, n), dtype=torch.uint16,
                       device=device)
+    sub = cost_matrix(palette, device)
     for lane in range(spec.N_LANES):
-        edit_distance_matrix(mode, palette, lane, device, out[lane])
-    return out.reshape(spec.N_LANES, n * n)
+        codes = lane_codes(mode, lane, device)
+        pair_distance(codes[:n_rows], codes, sub, out[lane])
+    return out.reshape(spec.N_LANES, n_rows * n)

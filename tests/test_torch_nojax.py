@@ -5,11 +5,13 @@ content (unsharded and over a CPU mesh of 2, with the parallel fetch and
 its future), a batch ingest, the sharded LUT build, compare_quantizers on
 the parity fixture, a replay score, a host-ingest Movie through
 the player VM (whole-movie and with `chunk_frames`), a streaming encode,
-the renderer, the CLI (with `--chunk_frames`), the sub-op microbenchmark
-and the delivery half (framing, retarget, seek, the server over a loopback
-socket, `verify_stream --machine` on the assembled 6502 player, the disk
-boot and `render_stream`) run, in a process
-where importing `jax`, `iivision_tpu` or the JAX benchmark `bench` fails.
+the renderer, the CLI (with `--chunk_frames`), the sub-op microbenchmark,
+the measuring programs (`bench`, `bench_configs`, `bench_solo_floor`: a
+tiny B=2 batch configuration) and the delivery half (framing, retarget,
+seek, the server over a loopback socket, `verify_stream --machine` on the
+assembled 6502 player, the disk boot and `render_stream`) run, in a process
+where importing `jax`, `iivision_tpu` or the JAX benchmarks `bench`,
+`bench_configs` and `bench_solo_floor` fails.
 chip_smoke.py imports there too.  No port source (nor chip_smoke.py)
 imports any of them."""
 
@@ -25,7 +27,8 @@ _CHILD = r"""
 import sys
 
 
-BLOCKED = ("jax", "jaxlib", "iivision_tpu", "bench")
+BLOCKED = ("jax", "jaxlib", "iivision_tpu", "bench", "bench_configs",
+           "bench_solo_floor")
 
 
 class Block:
@@ -221,6 +224,13 @@ with tempfile.TemporaryDirectory() as tmp:
     booted = machine65.boot_disk(disk, tiny)
     assert booted.exit_reason == "TERMINATED"
     assert np.array_equal(booted.aux, base.aux)
+# the measuring programs, one configuration at a tiny size
+from iivision_tpu_torch import bench, bench_configs, bench_solo_floor
+
+assert "k_sweep_k32_j8" in bench_configs.CONFIGS
+assert "solo_floor_dhgr_k32_j10" in bench_solo_floor.CONFIGS
+assert bench.main(["--device", "cpu", "--tiny", "--reps", "1", "--only",
+                   "batch_dhgr_b32_10s_k16_j4"]) == 0
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not loaded, loaded
 print("no-jax ok", plan.n_ops)
@@ -255,5 +265,6 @@ def test_port_sources_do_not_import_jax():
     assert len(paths) > 20
     for path in paths:
         bad = imported_roots(path) & {"jax", "jaxlib", "iivision_tpu",
-                                      "bench"}
+                                      "bench", "bench_configs",
+                                      "bench_solo_floor"}
         assert not bad, (path, bad)
