@@ -13,7 +13,8 @@ the card, bit-equal:
   pairs that transpose neighbouring codes, strided and broadcast views) and its
   codes entry at L = 10 and 18;
 - the chunk-start kernel: DHGR (both banks) and HGR, window, mono and yiq
-  bases, B = 1 and 32;
+  bases, B = 1 and 32, on the NTSC palette; the IIGS palette's window
+  bases (DHGR and HGR) and its HGR yiq stack, B = 1 and 32;
 - the body kernel's threefry (B = 32 keys, steps up to 2^20, four
   sub-ops);
 - the body kernel, default and joint content, on real plan bodies with
@@ -25,7 +26,10 @@ the card, bit-equal:
   and deterministic), on
   tie-heavy bodies whose every page and offset choice falls to the nonces,
   and for joint content on bodies whose contents tie (dw all zero, or one
-  cost for every content);
+  cost for every content) and at DHGR k=32 j=10 (every warp runs a slot),
+  B = 1 and 32, seeded and deterministic; both rules also on the IIGS
+  palette's tables (DHGR k=16 j=4, HGR k=8 j=1, B = 1 and 32, seeded and
+  deterministic);
 - kernel B (solo DHGR at both encoder settings, solo HGR, a case where
   offset 0 is the only companion, batches of 32 DHGR and 8 HGR movies),
   kernel B's joint variant (DHGR and HGR at k=16 j=4, and a crafted page
@@ -45,7 +49,9 @@ after it:
   whose checks are a zero diagonal, sampled blocks symmetric, sampled rows
   against plain and cells against the scalar Damerau-Levenshtein), then
   its first 1024 rows per lane through `build_tables_sharded` over
-  (cuda:0, cuda:0), equal to the full LUT's rows;
+  (cuda:0, cuda:0), equal to the full LUT's rows; then the IIGS palette's
+  whole DHGR LUT (the same checks) and the first 1024 rows of each HGR
+  lane (rows against plain, cells against the scalar recurrence);
 - the sub-op microbenchmark's T sweep (bench_subop.run);
 - 2 s clips in the yiq colour model (DHGR and HGR: the chunk-start
   kernel's yiq instantiation) and the mono model (HGR); the mono clip
@@ -63,12 +69,21 @@ after it:
 - the CLI's batch mode on three .npz clips of 10, 6 and 3 s, with `--mesh
   auto` (one card: unsharded): every stream plays at its own length, and
   the shortest equals its padded solo encode;
-- the 5 s quality clip of tests/test_quality_regression.py at k=16 j=4,
-  with and without joint content (the body kernel's joint
-  instantiation), replayed and scored on the card: each mean error within
-  1.01x of tests/data/quality_baseline.json, and joint below the default
-  rule's baseline; `stream_psnr` of the final screen against the last
-  target is printed;
+- the 5 s quality clip of tests/test_quality_regression.py at k=16 j=4
+  and at k=32 j=10, each with and without joint content (the body
+  kernel's joint instantiation), replayed and scored on the card: each
+  mean error within 1.01x of tests/data/quality_baseline.json, and joint
+  below the default rule's baseline at its (k, j); `stream_psnr` of the
+  final screen against the last target is printed;
+- tests/test_quality_matrix.py's twelve rows (MATRIX_ROWS: two pinned 2 s
+  clips over DHGR and HGR x NTSC and IIGS in the window model, and yiq
+  for DHGR NTSC and HGR IIGS; k=16 j=4, seed 0) through Movie, scored by
+  replay and held to tests/data/quality_matrix_baseline.json (mean
+  within 1.01x + 1e-6, final within 1.02x + 0.05); the HGR IIGS yiq table,
+  which no package ships, is built on the card, and sampled rows of it
+  are held against the plain build on the CPU;
+- a 10 s HGR clip through `cli.main --palette IIGS` at k=16 j=4, played
+  on the player VM to the encoder's finals;
 - the long-movie encoders: a 60 s DHGR clip (900 encoded frames) through
   Movie, which must take the streaming encoder, play on the player VM and
   equal its whole-movie encode byte for byte (both timed, with the device
@@ -97,9 +112,9 @@ after it:
   build of `sim/csrc/apple2_vm.cpp` and the player's assembly are timed
   apart, before the two paths.
 - the host oracle: deterministic (seed None) encodes on the card - 1 s
-  DHGR at k=8 j=1, 1 s HGR at k=4 j=3, 0.25 s DHGR joint at k=16 j=4 -
-  equal op for op, with their final screens, to `encoder_host`'s
-  `encode_movie_host` and a `HostEncoder` replay.
+  DHGR at k=8 j=1, 1 s HGR at k=4 j=3 (NTSC and IIGS), 0.25 s DHGR joint
+  at k=16 j=4 - equal op for op, with their final screens, to
+  `encoder_host`'s `encode_movie_host` and a `HostEncoder` replay.
 - the bench (`python -m iivision_tpu_torch.bench --reps 1`, in this
   process, on one shared bench Context): every configuration at full
   size - the LUT and the batch above among them, each run once - each its
@@ -224,6 +239,7 @@ def main():
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from iivision_tpu_torch import _build, bench, bench_subop
+    from iivision_tpu_torch.palettes import Palette
     from iivision_tpu_torch.video_mode import VideoMode
 
     dev = torch.device("cuda", 0)
@@ -283,6 +299,7 @@ def main():
                 ("lut_dhgr_ntsc_sharded", ("editdist_tile",),
                  lambda: run_lut_sharded(
                      dev, results.pop("bench:lut_dhgr_ntsc")), (), {}),
+                ("lut_iigs", ("editdist_tile",), run_lut_iigs, (dev,), {}),
                 ("bench_subop", ("subop_bench",), run_bench,
                  (dev, bench_subop, report), {}),
                 ("dhgr_2s_yiq", yiq, run_movie, (dev, dists, dhgr, 8, 1, 2),
@@ -300,7 +317,14 @@ def main():
                 ("batch_cli_mixed", enc, run_cli_mixed, (dev,), {}),
                 ("quality_dhgr_5s_k16_j4",
                  enc + ("lane_dist", "encode_body_joint"), run_quality,
-                 (dev, dists), {}),
+                 (dev, dists, 16, 4), {}),
+                ("quality_dhgr_5s_k32_j10",
+                 enc + ("lane_dist", "encode_body_joint"), run_quality,
+                 (dev, dists, 32, 10), {}),
+                ("quality_matrix", enc + ("chunk_start_yiq", "lane_dist"),
+                 run_quality_matrix, (dev,), {}),
+                ("hgr_10s_iigs_k16_j4", enc, run_cli_palette,
+                 (dev, hgr, Palette.IIGS, 16, 4, 10), {}),
                 ("dhgr_60s_stream_k8_j1", enc, run_long_stream, (dev, dists),
                  {}),
                 ("dhgr_10s_chunked_cli_k16_j4", enc, run_cli_chunked, (dev,),
@@ -318,8 +342,8 @@ def main():
                  (dev, hgr, 8, 1, 5), dict(boot=False)),
                 *((path, ("chunk_start", "encode_body_joint" if joint
                           else "encode_body"), run_host_oracle,
-                   (dev, m, k, j, sec, joint), {})
-                  for path, m, k, j, sec, joint in ORACLE_CASES)):
+                   (dev, m, pal, k, j, sec, joint), {})
+                  for path, m, pal, k, j, sec, joint in ORACLE_CASES)):
             if path == "delivery_dhgr_10s_k16_j4":
                 build_machine()
             out, launches = counted(path, want, fn, *args, **kw)
@@ -374,21 +398,11 @@ def bound(nbytes: float, ops: float = 0.0, int_ops: float = 0.0) -> dict:
 
 
 def synth_clip(seconds=10.0, fps=30, w=280, h=192, phase=0.0):
-    """A moving RGB pattern, (seconds * fps, h, w, 3) uint8 (the JAX
-    benchmark's bench.synth_clip)."""
-    import numpy as np
+    """A moving RGB pattern, (seconds * fps, h, w, 3) uint8: the port's
+    `bench.synth_clip` (the JAX benchmark's bench.synth_clip)."""
+    from iivision_tpu_torch import bench
 
-    F = int(seconds * fps)
-    t = np.linspace(0, 1, F, dtype=np.float32)[:, None, None]
-    yy = np.linspace(0, 1, h, dtype=np.float32)[None, :, None]
-    xx = np.linspace(0, 1, w, dtype=np.float32)[None, None, :]
-    shape = (F, h, w)
-    r = np.broadcast_to(127.5 + 127.5 * np.sin(7 * (xx + 2 * t) + phase),
-                        shape)
-    g = np.broadcast_to(255 * np.abs(np.sin(3 * (yy + t) + phase)), shape)
-    b = np.broadcast_to(127.5 + 127.5 * np.cos(5 * (xx + yy + t) + phase),
-                        shape)
-    return np.stack([r, g, b], axis=-1).astype(np.uint8)
+    return bench.synth_clip(seconds, fps, w, h, phase)
 
 
 def as_i32(t):
@@ -780,7 +794,9 @@ def check_chunk_start(dev, report):
     """The chunk-start kernel against chunk_start_plain, bit-equal up and
     dw: DHGR (both banks) and HGR, window and mono bases, B = 1 and 32, and
     the yiq instantiation (its own entry): DHGR banks 0 and 1 and HGR, B = 1
-    and 32; on seeded random banks (8-bit bytes), targets and state."""
+    and 32, all on the NTSC palette's bases; then the IIGS palette's
+    window bases (DHGR and HGR) and its HGR yiq stack, B = 1 and 32; on
+    seeded random banks (8-bit bytes), targets and state."""
     import numpy as np
     import torch
 
@@ -790,15 +806,25 @@ def check_chunk_start(dev, report):
     from iivision_tpu_torch.video_mode import VideoMode
 
     D, H = VideoMode.DHGR, VideoMode.HGR
+    N, I = Palette.NTSC, Palette.IIGS
     report["chunk_start"] = dict(max_abs_err=0)
     report["chunk_start_yiq"] = dict(max_abs_err=0)
-    for i, (mode, model, B, bank, tag) in enumerate((
-            (D, "window", 1, 0, ""), (D, "window", 1, 1, "_aux"),
-            (D, "mono", 32, 1, "_mono_b32"), (D, "window", 32, 0, "_b32"),
-            (H, "window", 1, 0, "_hgr"), (H, "mono", 32, 0, "_hgr_mono_b32"),
-            (D, "yiq", 1, 0, ""), (D, "yiq", 1, 1, "_aux"),
-            (D, "yiq", 32, 1, "_aux_b32"), (D, "yiq", 32, 0, "_b32"),
-            (H, "yiq", 1, 0, "_hgr"), (H, "yiq", 32, 0, "_hgr_b32"))):
+    for i, (mode, model, B, bank, tag, pal) in enumerate((
+            (D, "window", 1, 0, "", N), (D, "window", 1, 1, "_aux", N),
+            (D, "mono", 32, 1, "_mono_b32", N),
+            (D, "window", 32, 0, "_b32", N), (H, "window", 1, 0, "_hgr", N),
+            (H, "mono", 32, 0, "_hgr_mono_b32", N), (D, "yiq", 1, 0, "", N),
+            (D, "yiq", 1, 1, "_aux", N), (D, "yiq", 32, 1, "_aux_b32", N),
+            (D, "yiq", 32, 0, "_b32", N), (H, "yiq", 1, 0, "_hgr", N),
+            (H, "yiq", 32, 0, "_hgr_b32", N),
+            # the IIGS palette: window bases, and HGR's yiq stack (the
+            # table no package ships)
+            (D, "window", 1, 1, "_iigs_aux", I),
+            (D, "window", 32, 0, "_iigs_b32", I),
+            (H, "window", 1, 0, "_hgr_iigs", I),
+            (H, "window", 32, 0, "_hgr_iigs_b32", I),
+            (H, "yiq", 1, 0, "_hgr_iigs", I),
+            (H, "yiq", 32, 0, "_hgr_iigs_b32", I))):
         entry = report["chunk_start_yiq" if model == "yiq" else "chunk_start"]
         rng = np.random.RandomState(i + 11)
         nb = chunk_start.n_banks(mode)
@@ -809,7 +835,7 @@ def check_chunk_start(dev, report):
             (B, F, 32, 128, -1)).contiguous()
         up0 = random_state(dev, rng, (B, nb, 32, 256), 5000)
         dw0 = random_state(dev, rng, (B, nb, 32, 256), 900)
-        sub = torch.as_tensor(distance.sub_for(mode, Palette.NTSC, model)
+        sub = torch.as_tensor(distance.sub_for(mode, pal, model)
                               .astype(np.int32), device=dev)
         got = [up0.clone(), dw0.clone()]
         want = [up0.clone(), dw0.clone()]
@@ -829,9 +855,9 @@ def check_chunk_start(dev, report):
         # bytes and int32 operations: roofline.chunk_start_cost
         nbytes, _, int_ops = roofline.chunk_start_cost(mode, B, model)
         bnd = bound(nbytes, int_ops=int_ops)
-        print("chunk_start %s %s B=%d bank=%d: max_abs_err=%d ms=%.4f "
+        print("chunk_start %s %s %s B=%d bank=%d: max_abs_err=%d ms=%.4f "
               "plain_ms=%.4f bound_ms=%.5f (%s)" % (
-                  mode.name, model, B, bank, err, ms, plain_ms,
+                  mode.name, pal.name, model, B, bank, err, ms, plain_ms,
                   bnd["bound_ms"], bnd["bound_by"]))
         entry["ms" + tag] = ms
         entry["plain_ms" + tag] = plain_ms
@@ -895,10 +921,11 @@ def pick_body(plan) -> int:
 
 
 def body_inputs(dev, mode, k: int, j: int, B: int, seed: int,
-                tie: bool = False):
+                tie: bool = False, palette=None):
     """A real plan's body (1 s at 30 fps, every 2nd frame) with seeded
-    random targets and state for B movies.  tie: every up equal, so each
-    page and offset choice falls to the nonces."""
+    random targets and state for B movies, on `palette`'s window
+    store-cost table (default NTSC).  tie: every up equal, so each page
+    and offset choice falls to the nonces."""
     import numpy as np
     import torch
 
@@ -924,7 +951,8 @@ def body_inputs(dev, mode, k: int, j: int, B: int, seed: int,
           * random_state(dev, rng, (B, nb, 32, 256), 2))
     state = [up.contiguous(), random_state(dev, rng, (B, nb, 32, 256), 900),
              random_state(dev, rng, (B, nb, 32, 256), hi)]
-    dist = distance.ComputedDistance(mode, Palette.NTSC, device=dev)
+    dist = distance.ComputedDistance(mode, palette or Palette.NTSC,
+                                     device=dev)
     table = dist.store_cost16.reshape(-1, dist.n_contents)
     S = len(plan.step_frame)
     ops = torch.full((S, B, j, k, 6), 7, dtype=torch.uint8, device=dev)
@@ -949,22 +977,31 @@ def check_body(dev, report, joint: bool = False):
     the bench's settings (BENCH_BODIES): DHGR (32, 10), (32, 1), (1, 1),
     (16, 8), (32, 4) and (32, 8) at B = 1 and 32, DHGR (16, 4) at B = 10
     and 16, and HGR (16, 4) at B = 1, 10 and 32, seeded and
-    deterministic.
+    deterministic; and on the IIGS palette's tables, DHGR k=16 j=4 and HGR
+    k=8 j=1 at B = 1 and 32, seeded and deterministic.
     joint: the kernel's joint instantiation (its own entry), timed at DHGR
     k=16 j=4 (the quality clip's setting) B = 1 and 32 and on HGR, plus
     bodies whose contents tie: dw all zero (no companion gain: the
     cheapest contents at the primary tie) and one cost for every content
-    (every content ties)."""
+    (every content ties); DHGR k=32 j=10 (all 32 warps run a slot) and the
+    IIGS cases above, each at B = 1 and 32, seeded and deterministic."""
     import torch
 
     from iivision_tpu_torch import roofline
     from iivision_tpu_torch.ops import body
     from iivision_tpu_torch.ops import random as trandom
+    from iivision_tpu_torch.palettes import Palette
     from iivision_tpu_torch.video_mode import VideoMode
 
     D, H = VideoMode.DHGR, VideoMode.HGR
     name = "encode_body_joint" if joint else "encode_body"
     entry = report[name] = dict(max_abs_err=0)
+    # the IIGS palette's window tables (HGR's costs reach 1681)
+    iigs = tuple((mode, k, j, B, seeded, "iigs", "%s_iigs_k%d_j%d%s%s" % (
+        "_hgr" if mode == H else "", k, j, "_b%d" % B if B > 1 else "",
+        "" if seeded else "_det"))
+        for mode, k, j in ((D, 16, 4), (H, 8, 1))
+        for B in (1, 32) for seeded in (True, False))
     cases = ((D, 16, 4, 1, True, None, ""),
              (D, 16, 4, 1, False, None, "_det"),
              (D, 16, 4, 32, True, None, "_b32"),
@@ -974,7 +1011,12 @@ def check_body(dev, report, joint: bool = False):
              (H, 8, 1, 32, True, None, "_hgr_b32"),
              (D, 16, 4, 32, True, "tie", "_tie_b32"),
              (D, 16, 4, 1, True, "zero_dw", "_zero_dw"),
-             (H, 8, 1, 1, False, "one_cost", "_one_cost_hgr")) if joint else (
+             (H, 8, 1, 1, False, "one_cost", "_one_cost_hgr"),
+             # the solo headline's setting, every warp running a slot
+             *((D, 32, 10, B, seeded, None, "_k32_j10%s%s" % (
+                 "_b%d" % B if B > 1 else "", "" if seeded else "_det"))
+               for B in (1, 32) for seeded in (True, False)),
+             *iigs) if joint else (
         (D, 8, 1, 1, True, None, ""),
         (D, 8, 1, 1, False, None, "_det"),
         (D, 16, 4, 1, True, None, "_k16_j4"),
@@ -993,10 +1035,12 @@ def check_body(dev, report, joint: bool = False):
             "" if seeded else "_det"))
           for name_, k, j, batches in BENCH_BODIES
           for mode in (VideoMode[name_],)
-          for B in batches for seeded in (True, False)))
+          for B in batches for seeded in (True, False)),
+        *iigs)
     for mode, k, j, B, seeded, kind, tag in cases:
         plan, b0, state, lanes, bytes_tgt, table, nvalid, ops = body_inputs(
-            dev, mode, k, j, B, 50 + len(entry) + 100 * joint, kind == "tie")
+            dev, mode, k, j, B, 50 + len(entry) + 100 * joint, kind == "tie",
+            Palette.IIGS if kind == "iigs" else None)
         if kind == "zero_dw":
             state[1].zero_()
         elif kind == "one_cost":
@@ -1447,14 +1491,31 @@ def roofline_line(what, dev, plan, mode, batch: int, seconds: float,
     return rec
 
 
+def rows_vs_plain(table, mode, sub, seed: int) -> int:
+    """Largest difference between 32 sampled target rows per lane of a
+    store-cost table built on the card and the plain build of the same
+    rows on the CPU (`store_cost_rows` on the cost basis `sub`)."""
+    import numpy as np
+    import torch
+
+    from iivision_tpu_torch.ops import distance
+
+    sub = torch.as_tensor(sub.astype(np.int32))
+    rng = np.random.RandomState(seed)
+    worst = 0
+    for lane in range(table.shape[0]):
+        t = torch.as_tensor(rng.randint(0, table.shape[1], 32))
+        want = distance.store_cost_rows(mode, lane, t, sub)
+        got = table[lane, t.to(table.device)].cpu().to(torch.int32)
+        worst = max(worst, int((got - want).abs().max()))
+    return worst
+
+
 def run_mono(dev, dists, mode):
     """A 2 s mono clip (k=8, j=1).  No mono table is shipped, so its Movie
     builds one on the card (kernel A's lane distance, HGR) into the
     empty temporary cache; 64 sampled rows of the table the clip encoded
     with are then held against the plain build on the CPU."""
-    import numpy as np
-    import torch
-
     from iivision_tpu_torch.ops import distance
     from iivision_tpu_torch.palettes import Palette
 
@@ -1466,15 +1527,7 @@ def run_mono(dev, dists, mode):
     if not os.path.exists(path):
         raise AssertionError("the mono clip saved no store-cost table")
     table = m.dist.store_cost16
-    sub = torch.as_tensor(distance.sub16_mono().astype(np.int32))
-    rng = np.random.RandomState(6)
-    n = table.shape[1]
-    worst = 0
-    for lane in range(table.shape[0]):
-        t = torch.as_tensor(rng.randint(0, n, 32))
-        want = distance.store_cost_rows(mode, lane, t, sub)
-        got = table[lane, t.to(dev)].cpu().to(torch.int32)
-        worst = max(worst, int((got - want).abs().max()))
+    worst = rows_vs_plain(table, mode, distance.sub16_mono(), 6)
     print("store cost %s NTSC mono: shape=%s built in tables_s=%.3f "
           "max=%d, 64 rows of the clip's table vs plain max_abs_err=%d" % (
               mode.name, tuple(table.shape), m.timings["tables_s"],
@@ -1521,16 +1574,13 @@ def synth_clips(B: int, seconds: float, every_n: int = 1):
 
 
 def tone_levels(dev, seconds: float):
-    """The quality gate's audio: a 440 Hz sine at 14,700 Hz (no resample),
+    """The quality gates' audio: a 440 Hz sine at 14,700 Hz (no resample;
+    `compute_row`'s and tests/test_quality_regression.py's float32 tone),
     as the port's Audio."""
-    import numpy as np
+    from iivision_tpu_torch import audio, bench
 
-    from iivision_tpu_torch import audio
-
-    n = int(seconds * 14700)
-    tone = (np.sin(2 * np.pi * 440 * np.arange(n) / 14700)
-            * 16000).astype(np.float32)
-    return audio.Audio(data=tone, rate=14700, bitrate=14700, device=dev)
+    return audio.Audio(data=bench.tone(seconds), rate=14700, bitrate=14700,
+                       device=dev)
 
 
 def check_vm(data, n_ops, levels, finals, what):
@@ -1690,25 +1740,25 @@ def run_cli_mixed(dev):
                                   rows[0]["batch_encode_s"], wall))
 
 
-def run_quality(dev, dists):
+def run_quality(dev, dists, k: int, j: int):
     """tests/test_quality_regression.py on the card: the pinned 5 s clip
-    through the port's Movie at k=16 j=4 (seed 0), default and joint
+    through the port's Movie at (k, j) (seed 0), default and joint
     content, replayed and scored by the port's quality module.  Each mean
     error is held to its committed baseline row (<= 1.01x; final error
-    <= 1.02x + 0.05), and joint must beat the default rule's baseline."""
+    <= 1.02x + 0.05), and joint must beat the default rule's baseline at
+    the same (k, j)."""
     from iivision_tpu_torch import encoder, quality, render
     from iivision_tpu_torch.movie import Movie
     from iivision_tpu_torch.palettes import Palette
     from iivision_tpu_torch.video_mode import VideoMode
 
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "tests", "data", "quality_baseline.json")) as f:
-        rows = json.load(f)["rows"]
+    rows = baseline_rows("quality_baseline.json")
     rgb = synth_clip(seconds=5.0)
     means = {}
+    default = "dhgr_ntsc_k%d_j%d_seed0" % (k, j)
     for joint in (False, True):
         m = Movie(frames_source=rgb, audio_source=tone_levels(dev, 5.0),
-                  every_n_video_frames=2, k=16, j=4, seed=0, device=dev,
+                  every_n_video_frames=2, k=k, j=j, seed=0, device=dev,
                   video_mode=VideoMode.DHGR, joint_content=joint,
                   dist=dists[(VideoMode.DHGR, "window")])
         flat, _ = m.encode_ops()
@@ -1717,7 +1767,7 @@ def run_quality(dev, dists):
             dev)
         rep = quality.replay_frame_errors(flat, m.plan, lanes,
                                           VideoMode.DHGR, m.dist)
-        name = "dhgr_ntsc_k16_j4_seed0" + ("_joint" if joint else "")
+        name = default + ("_joint" if joint else "")
         row = rows[name]
         last = int(m.plan.step_frame.max())
         psnr = quality.stream_psnr(
@@ -1726,7 +1776,7 @@ def run_quality(dev, dists):
                                  m.frames.targets_aux[last], VideoMode.DHGR,
                                  Palette.NTSC),
             VideoMode.DHGR, Palette.NTSC)
-        print("quality %s: mean_error=%.4f (baseline %.4f) final_error=%.4f "
+        print("quality %s: mean_error=%.6f (baseline %.4f) final_error=%.6f "
               "(baseline %.4f) stream_psnr_db=%.2f tables_s=%.3f "
               "encode_s=%.3f" % (
                   name, rep.mean_error, row["mean_error"], rep.final_error,
@@ -1740,9 +1790,129 @@ def run_quality(dev, dists):
         if rep.final_error > row["final_error"] * 1.02 + 0.05:
             raise AssertionError("%s final error regressed" % name)
         means[joint] = rep.mean_error
-    if not means[True] < rows["dhgr_ntsc_k16_j4_seed0"]["mean_error"]:
+    if not means[True] < rows[default]["mean_error"]:
         raise AssertionError("joint content no longer beats the default "
-                             "rule")
+                             "rule at k=%d j=%d" % (k, j))
+
+
+def baseline_rows(name):
+    """The rows of tests/data/`name`, a committed quality baseline."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "data", name)) as f:
+        return json.load(f)["rows"]
+
+
+# The quality matrix of tests/quality_matrix_common.py (which imports the
+# JAX package, so the smoke keeps its own copy; tests/
+# test_torch_palette_matrix.py holds the two equal): two pinned 2 s clips
+# over DHGR and HGR x NTSC and IIGS in the window model, plus yiq for DHGR
+# NTSC and HGR IIGS, each encoded at MATRIX_SETTING with the tone of its
+# `compute_row` and held to tests/data/quality_matrix_baseline.json.
+MATRIX_SECONDS = 2.0
+MATRIX_SETTING = dict(every_n_video_frames=2, k=16, j=4, seed=0)
+MATRIX_ROWS = tuple(  # (row key, clip, mode, palette, colour model)
+    row for clip in ("sweep", "blocks") for row in (
+        *(("%s_%s_%s_window" % (clip, mode.lower(), pal.lower()), clip,
+           mode, pal, "window")
+          for mode in ("DHGR", "HGR") for pal in ("NTSC", "IIGS")),
+        ("%s_dhgr_ntsc_yiq" % clip, clip, "DHGR", "NTSC", "yiq"),
+        ("%s_hgr_iigs_yiq" % clip, clip, "HGR", "IIGS", "yiq")))
+
+
+def clip_blocks():
+    """The matrix's clip B (quality_matrix_common.clip_blocks): hard-edged
+    moving blocks over static detail, (60, 192, 280, 3) uint8."""
+    import numpy as np
+
+    F = int(MATRIX_SECONDS * 30)
+    h, w = 192, 280
+    rng = np.random.RandomState(7)
+    base = rng.randint(0, 8, size=(12, 18), dtype=np.int32)
+    palette = np.array(
+        [[0, 0, 0], [220, 30, 30], [30, 200, 40], [40, 60, 220],
+         [230, 220, 40], [200, 40, 200], [40, 210, 210], [255, 255, 255]],
+        np.uint8)
+    frames = np.zeros((F, h, w, 3), np.uint8)
+    bg = np.kron(palette[base], np.ones((16, 16, 1), np.uint8))[:h, :w]
+    for t in range(F):
+        f = bg.copy()
+        x = (t * 9) % (w - 60)
+        y = (t * 5) % (h - 40)
+        f[y:y + 40, x:x + 60] = [255, 160, 0]
+        x2 = w - 80 - (t * 7) % (w - 80)
+        f[20:50, x2:x2 + 50] = [0, 0, 0] if t % 2 else [255, 255, 255]
+        frames[t] = f
+    return frames
+
+
+def matrix_clips():
+    """{clip name: RGB frames} of the matrix: clip A is the bench's sweep."""
+    return {"sweep": synth_clip(seconds=MATRIX_SECONDS),
+            "blocks": clip_blocks()}
+
+
+def run_quality_matrix(dev):
+    """tests/test_quality_matrix.py on the card: each of MATRIX_ROWS'
+    twelve rows through the port's Movie at MATRIX_SETTING with the 2 s
+    tone, replayed and scored by `quality.replay_frame_errors`, held to
+    its committed row with the JAX test's gate (mean <= 1.01x + 1e-6,
+    final <= 1.02x + 0.05).  One distance model per (mode, palette,
+    colour model), shared by the two clips.  No HGR IIGS yiq table is
+    shipped: the first such row builds it on the card into the empty
+    temporary cache, and 64 sampled rows of it are held against the plain
+    build on the CPU."""
+    from iivision_tpu_torch import encoder, quality
+    from iivision_tpu_torch.movie import Movie
+    from iivision_tpu_torch.ops import distance
+    from iivision_tpu_torch.palettes import Palette
+    from iivision_tpu_torch.video_mode import VideoMode
+
+    rows = baseline_rows("quality_matrix_baseline.json")
+    clips = matrix_clips()
+    built = distance.store_cost_path(VideoMode.HGR, Palette.IIGS, "yiq",
+                                     distance._user_cache_dir())
+    if os.path.exists(built):
+        raise AssertionError("HGR IIGS yiq table cached before the matrix: "
+                             "%s" % built)
+    dists, tables_s = {}, {}
+    for key, clip, mode_name, pal_name, model in MATRIX_ROWS:
+        mode, pal = VideoMode[mode_name], Palette[pal_name]
+        shared = dists.get((mode, pal, model))
+        m = Movie(frames_source=clips[clip],
+                  audio_source=tone_levels(dev, MATRIX_SECONDS), device=dev,
+                  video_mode=mode, palette=pal, colour_model=model,
+                  dist=shared, **MATRIX_SETTING)
+        dists[(mode, pal, model)] = m.dist
+        tables_s.setdefault((mode, pal, model), m.timings["tables_s"])
+        flat, _ = m.encode_ops()
+        lanes, _ = encoder.prepare_targets(
+            m.frames.targets_main, m.frames.targets_aux, mode, dev)
+        rep = quality.replay_frame_errors(flat, m.plan, lanes, mode, m.dist)
+        row = rows[key]
+        print("quality_matrix %s: mean_error=%.6f (baseline %.4f) "
+              "final_error=%.6f (baseline %.4f) n_ops=%d tables_s=%.3f "
+              "encode_s=%.3f encoder=%s" % (
+                  key, rep.mean_error, row["mean_error"], rep.final_error,
+                  row["final_error"], m.plan.n_ops, m.timings["tables_s"],
+                  m.timings["encode_s"], m.encoder_used))
+        if not rep.mean_error <= row["mean_error"] * 1.01 + 1e-6:
+            raise AssertionError("%s mean error regressed" % key)
+        if not rep.final_error <= row["final_error"] * 1.02 + 0.05:
+            raise AssertionError("%s final error regressed" % key)
+    if not os.path.exists(built):
+        raise AssertionError("the HGR IIGS yiq rows saved no table")
+    table = dists[(VideoMode.HGR, Palette.IIGS, "yiq")].store_cost16
+    worst = rows_vs_plain(table, VideoMode.HGR, distance.sub_for(
+        VideoMode.HGR, Palette.IIGS, "yiq"), 11)
+    print("store cost HGR IIGS yiq: shape=%s built on the card in "
+          "tables_s=%.3f, max=%d, 64 rows vs the plain build on the CPU "
+          "max_abs_err=%d" % (
+              tuple(table.shape),
+              tables_s[(VideoMode.HGR, Palette.IIGS, "yiq")],
+              int(table.max()), worst))
+    if worst:
+        raise AssertionError("HGR IIGS yiq store-cost rows disagree with "
+                             "plain")
 
 
 def enc_launches():
@@ -2158,6 +2328,119 @@ def write_dbg(addrs, path):
                     'def=1,val=0x%X,type=lab\n' % (i, name, val))
 
 
+def cli_transcode(dev, tmp, mode, k: int, j: int, seconds: int,
+                  extra=()):
+    """One clip (280x192, 30 fps, every 2nd frame) transcoded on the card
+    through `cli.main` into `tmp`, with the CLI flags `extra`.  An .npz
+    clip carries no audio track, so the Movie the CLI makes is given a
+    440 Hz tone's (decoded from a WAV and resampled on the card), and is
+    kept for its final screens and audio levels.  Returns (that Movie,
+    its --stats_json row, the .a2m path, its bytes, the CLI's wall
+    seconds)."""
+    import numpy as np
+    import torch
+
+    from iivision_tpu_torch import audio, cli
+    from iivision_tpu_torch import movie as movie_mod
+
+    clip = os.path.join(tmp, "clip.npz")
+    np.savez(clip, frames=synth_clip(seconds=float(seconds)), frame_rate=30.0)
+    wav = os.path.join(tmp, "clip.wav")
+    write_tone(wav, seconds)
+    made = []
+
+    class RecordedMovie(movie_mod.Movie):
+        def __init__(self, filename=None, **kw):
+            kw["audio_source"] = audio.Audio(wav, bitrate=14700,
+                                             device=kw["device"])
+            super().__init__(filename, **kw)
+            made.append(self)
+
+    a2m = os.path.join(tmp, "clip.a2m")
+    stats_path = os.path.join(tmp, "stats.json")
+    original = movie_mod.Movie
+    movie_mod.Movie = RecordedMovie
+    t0 = time.time()
+    try:
+        cli.main([clip, "--device", str(dev), "--output", a2m,
+                  "--video_mode", mode.name, "--k", str(k), "--j", str(j),
+                  "--stats_json", stats_path, *extra])
+    finally:
+        movie_mod.Movie = original
+    torch.cuda.synchronize()
+    cli_s = time.time() - t0
+    m, = made
+    if m.device.type != "cuda":
+        raise AssertionError("the CLI's movie ran on %s" % m.device)
+    with open(stats_path) as f:
+        stats = json.load(f)[0]
+    with open(a2m, "rb") as f:
+        data = f.read()
+    return m, stats, a2m, data, cli_s
+
+
+def run_cli_palette(dev, mode, palette, k: int, j: int, seconds: int):
+    """A clip through `cli.main --palette P --device cuda`
+    (`cli_transcode`), then the player VM: duty cycles from the audio
+    levels and final screens equal to the encoder's; then a
+    `roofline[...]` line whose modelled chunk starts and bodies must equal
+    the launches counted on the path."""
+    import numpy as np
+
+    from iivision_tpu_torch.video_mode import VideoMode
+
+    what = "cli %s %s %ds k=%d j=%d" % (mode.name, palette.name, seconds, k, j)
+    with tempfile.TemporaryDirectory() as tmp:
+        m, stats, _, data, cli_s = cli_transcode(
+            dev, tmp, mode, k, j, seconds, ("--palette", palette.name))
+    if m.palette != palette or m.encoder_used != "whole":
+        raise AssertionError("%s: the CLI's movie ran %s with the %s encoder"
+                             % (what, m.palette, m.encoder_used))
+    finals = [("main", m.final_main)]
+    if mode == VideoMode.DHGR:
+        finals.append(("aux", m.final_aux))
+    check_vm(data, m.plan.n_ops,
+             np.asarray(m.audio.levels())[:m.plan.n_ops], finals, what)
+    print("%s: n_ops=%d bytes=%d frames_s=%.3f tables_s=%.3f encode_s=%.3f "
+          "total_s=%.3f realtime_x=%.3f cli_s=%.3f; the VM plays it to the "
+          "encoder's finals" % (
+              what, m.plan.n_ops, len(data), stats["frames_s"],
+              stats["tables_s"], stats["encode_s"], stats["total_s"],
+              stats["realtime_x"], cli_s))
+    roofline_line(what, dev, m.plan, mode, 1, stats["encode_s"],
+                  enc_launches())
+
+
+def run_lut_iigs(dev, n_rows: int = 1024):
+    """The IIGS palette's LUTs (`make_tables --what luts` builds NTSC and
+    IIGS): the whole DHGR LUT through `editdist.build_tables` (the IIGS
+    cost matrix is symmetric, so kernel A's symmetric path runs), held by
+    `bench.lut_checks` (a zero diagonal, sampled blocks symmetric, sampled
+    rows against plain, cells against the scalar Damerau-Levenshtein),
+    then the first `n_rows` rows of each HGR lane (the general tile), held
+    by its row and cell checks."""
+    import torch
+
+    from iivision_tpu_torch import bench
+    from iivision_tpu_torch.ops import editdist
+    from iivision_tpu_torch.palettes import Palette
+    from iivision_tpu_torch.video_mode import VideoMode
+
+    for mode, rows in ((VideoMode.DHGR, None), (VideoMode.HGR, n_rows)):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tables = editdist.build_tables(mode, Palette.IIGS, dev, n_rows=rows)
+        torch.cuda.synchronize()
+        build_s = time.time() - t0
+        checks = bench.lut_checks(tables, mode, Palette.IIGS, rows)
+        print("LUT %s IIGS%s: shape=%s tablegen_s=%.4f checks=%s" % (
+            mode.name, "" if rows is None else " first %d rows" % rows,
+            tuple(tables.shape), build_s, json.dumps(checks)))
+        bad = [name for name, ok in checks.items() if ok is False]
+        if bad:
+            raise AssertionError("LUT %s IIGS fails %s" % (mode.name, bad))
+
+
 def run_delivery(dev, mode, k: int, j: int, seconds: int, boot: bool):
     """The delivery half on one clip (280x192, 30 fps, every 2nd frame, a
     440 Hz tone): transcode on the card through `cli.main`, then verify
@@ -2165,10 +2448,8 @@ def run_delivery(dev, mode, k: int, j: int, seconds: int, boot: bool):
     (`boot`) and render, each step one `delivery:` line with its host
     seconds.  Any step that disagrees raises."""
     import numpy as np
-    import torch
 
-    from iivision_tpu_torch import DATA_DIR, audio, cli, make_disk, quality
-    from iivision_tpu_torch import movie as movie_mod
+    from iivision_tpu_torch import DATA_DIR, make_disk, quality
     from iivision_tpu_torch import render, render_stream, server
     from iivision_tpu_torch import verify_stream
     from iivision_tpu_torch.palettes import Palette
@@ -2197,44 +2478,9 @@ def run_delivery(dev, mode, k: int, j: int, seconds: int, boot: bool):
                                  % (what, name))
 
     with tempfile.TemporaryDirectory() as tmp:
-        # 1. transcode on the card, through the CLI.  An .npz clip carries
-        # no audio track, so the Movie the CLI makes is given the tone's
-        # (decoded from a WAV and resampled on the card), and is kept for
-        # its final screens and audio levels.
-        clip = os.path.join(tmp, "clip.npz")
-        np.savez(clip, frames=synth_clip(seconds=float(seconds)),
-                 frame_rate=30.0)
-        wav = os.path.join(tmp, "clip.wav")
-        write_tone(wav, seconds)
-        made = []
-
-        class RecordedMovie(movie_mod.Movie):
-            def __init__(self, filename=None, **kw):
-                kw["audio_source"] = audio.Audio(wav, bitrate=14700,
-                                                 device=kw["device"])
-                super().__init__(filename, **kw)
-                made.append(self)
-
-        a2m = os.path.join(tmp, "clip.a2m")
-        stats_path = os.path.join(tmp, "stats.json")
-        original = movie_mod.Movie
-        movie_mod.Movie = RecordedMovie
-        t0 = time.time()
-        try:
-            cli.main([clip, "--device", str(dev), "--output", a2m,
-                      "--video_mode", mode.name, "--k", str(k), "--j",
-                      str(j), "--stats_json", stats_path])
-        finally:
-            movie_mod.Movie = original
-        torch.cuda.synchronize()
-        cli_s = time.time() - t0
-        m, = made
-        if m.device.type != "cuda":
-            raise AssertionError("the CLI's movie ran on %s" % m.device)
-        with open(stats_path) as f:
-            stats = json.load(f)[0]
-        with open(a2m, "rb") as f:
-            data = f.read()
+        # 1. transcode on the card, through the CLI
+        m, stats, a2m, data, cli_s = cli_transcode(dev, tmp, mode, k, j,
+                                                   seconds)
         n_ops = m.plan.n_ops
         levels = np.asarray(m.audio.levels())[:n_ops]
         print("delivery: %s transcode: n_ops=%d bytes=%d frames=%d "
@@ -2553,17 +2799,19 @@ def run_lut_sharded(dev, lut, n_rows: int = 1024):
               full_s, n, full_s * 1024 / n))
 
 
-ORACLE_CASES = (  # (path, mode, k, j, seconds, joint)
-    ("host_oracle_dhgr_1s_k8_j1", "DHGR", 8, 1, 1.0, False),
-    ("host_oracle_hgr_1s_k4_j3", "HGR", 4, 3, 1.0, False),
-    ("host_oracle_dhgr_joint_k16_j4", "DHGR", 16, 4, 0.25, True))
+ORACLE_CASES = (  # (path, mode, palette, k, j, seconds, joint)
+    ("host_oracle_dhgr_1s_k8_j1", "DHGR", "NTSC", 8, 1, 1.0, False),
+    ("host_oracle_hgr_1s_k4_j3", "HGR", "NTSC", 4, 3, 1.0, False),
+    ("host_oracle_dhgr_joint_k16_j4", "DHGR", "NTSC", 16, 4, 0.25, True),
+    ("host_oracle_hgr_iigs_1s_k4_j3", "HGR", "IIGS", 4, 3, 1.0, False))
 
 
-def run_host_oracle(dev, mode_name: str, k: int, j: int, seconds: float,
-                    joint: bool):
+def run_host_oracle(dev, mode_name: str, palette_name: str, k: int, j: int,
+                    seconds: float, joint: bool):
     """A deterministic (seed None) encode of a synthetic clip (30 fps,
-    every 2nd frame) through encoder.encode_movie on the card, with the
-    CUDA kernels, against the port's host oracle: its ops must equal
+    every 2nd frame, ingested and scored on `palette_name`'s tables)
+    through encoder.encode_movie on the card, with the CUDA kernels,
+    against the port's host oracle: its ops must equal
     encoder_host.encode_movie_host's op for op, and a HostEncoder replay's
     ops and final screens must equal the card's.  Prints the oracle's host
     seconds beside the card's encode."""
@@ -2576,16 +2824,15 @@ def run_host_oracle(dev, mode_name: str, k: int, j: int, seconds: float,
     from iivision_tpu_torch.parallel import mesh
     from iivision_tpu_torch.video_mode import VideoMode
 
-    mode = VideoMode[mode_name]
+    mode, palette = VideoMode[mode_name], Palette[palette_name]
     F = int(seconds * 30)
     src = torch.as_tensor(synth_clip(seconds=seconds, phase=1.3)[None, ::2])
-    lanes_b, bytes_b = mesh.ingest_movies_batch(src.to(dev), mode,
-                                                Palette.NTSC)
+    lanes_b, bytes_b = mesh.ingest_movies_batch(src.to(dev), mode, palette)
     plan, n_enc = encoder.plan_movie(
         n_frames=F, n_audio_ticks=int(seconds * 14700),
         input_frame_rate=30.0, ticks_per_second=14700.0,
         every_n_video_frames=2, mode=mode, k=k, j=j)
-    dist = distance.ComputedDistance(mode, Palette.NTSC, device=dev)
+    dist = distance.ComputedDistance(mode, palette, device=dev)
     torch.cuda.synchronize()
     t0 = time.time()
     ops, main, aux = encoder.encode_movie(dist, lanes_b[0, :n_enc],
@@ -2603,24 +2850,23 @@ def run_host_oracle(dev, mode_name: str, k: int, j: int, seconds: float,
     replay = np.asarray(encoder_host.run_plan(henc, lanes, bytes_, plan),
                         np.int32)
     replay_s = time.time() - t0
+    what = "%s %s k=%d j=%d%s" % (mode.name, palette.name, k, j,
+                                  " joint" if joint else "")
     if not np.array_equal(flat, want):
         bad = np.argwhere((flat != want).any(axis=1))[:, 0]
-        raise AssertionError("%s k=%d j=%d%s: the card's ops differ from the "
-                             "host oracle at %d ops, first op %d: %s vs %s" % (
-                                 mode.name, k, j, " joint" if joint else "",
-                                 len(bad), bad[0], flat[bad[0]].tolist(),
+        raise AssertionError("%s: the card's ops differ from the host oracle "
+                             "at %d ops, first op %d: %s vs %s" % (
+                                 what, len(bad), bad[0],
+                                 flat[bad[0]].tolist(),
                                  want[bad[0]].tolist()))
     if not (np.array_equal(replay, want)
             and np.array_equal(main.cpu().numpy(), henc.banks[0])
             and np.array_equal(aux.cpu().numpy(), henc.banks[-1])):
-        raise AssertionError("%s k=%d j=%d: the HostEncoder replay's ops or "
-                             "final screens differ from the card's"
-                             % (mode.name, k, j))
-    print("host oracle %s %gs k=%d j=%d%s seed=None: n_ops=%d, ops and final "
-          "screens equal; card encode+fetch_s=%.3f oracle_s=%.3f "
-          "replay_s=%.3f" % (mode.name, seconds, k, j,
-                             " joint" if joint else "", plan.n_ops, card_s,
-                             oracle_s, replay_s))
+        raise AssertionError("%s: the HostEncoder replay's ops or final "
+                             "screens differ from the card's" % what)
+    print("host oracle %s %gs seed=None: n_ops=%d, ops and final screens "
+          "equal; card encode+fetch_s=%.3f oracle_s=%.3f replay_s=%.3f" % (
+              what, seconds, plan.n_ops, card_s, oracle_s, replay_s))
 
 
 def bench_paths():

@@ -1,9 +1,10 @@
 """The batch transcode in iivision_tpu_torch (parallel.mesh,
-encoder.encode_movies, the CLI's several-input mode) on the CPU against
-the JAX package's `iivision_tpu.parallel.mesh`: seeded batches byte-equal,
-each movie equal to its solo encode, mixed-length batches, the compact op
-fetch, and the mesh rules (tests/test_torch_mesh.py runs sharded
-batches)."""
+encoder.encode_movies, the CLI's several-input mode) on the CPU: the
+compact op fetch, the mesh rules and the CLI's batch mode, with the
+helpers of the split-off files (tests/test_torch_batch_solo.py: seeded
+batches byte-equal to the JAX package's `iivision_tpu.parallel.mesh`,
+each movie equal to its solo encode; tests/test_torch_batch_mixed.py:
+mixed-length batches; tests/test_torch_mesh.py runs sharded batches)."""
 
 import json
 import os
@@ -13,7 +14,6 @@ import pytest
 import torch
 
 from iivision_tpu import encoder as jenc
-from iivision_tpu.parallel import mesh as jmesh
 from iivision_tpu.video_mode import VideoMode as JVideoMode
 from iivision_tpu_torch import cli, encoder, frames
 from iivision_tpu_torch.palettes import Palette
@@ -22,7 +22,7 @@ from iivision_tpu_torch.sim import PlayerVM
 from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
 from iivision_tpu_torch.video_mode import VideoMode
 
-from tests.test_encoder import get_dist, random_frames
+from tests.test_encoder import random_frames
 from tests.test_pipeline import gradient_movie
 from tests.test_torch_joint import torch_dist
 
@@ -48,70 +48,6 @@ def flat_plan(mode, k, j):
         ticks_per_second=14700.0, every_n_video_frames=1, mode=jm(mode),
         k=k, j=j)
     return plan
-
-
-@pytest.mark.parametrize("mode", [DHGR, HGR])
-@pytest.mark.parametrize("k,j", [(8, 1), (4, 2)])
-def test_batch_matches_jax_and_solo(mode, k, j):
-    """Three distinct movies with seeds 4, 9, 2: the port's flat batch ops
-    and final screens equal the JAX vmapped scan's, and each movie equals
-    the port's solo encode with its own seed."""
-    B, seeds = 3, [4, 9, 2]
-    plan = flat_plan(mode, k, j)
-    main, aux = batch_targets(mode, B, 2, 30)
-    F = main.shape[1]
-    j_lanes, j_bytes = jenc.prepare_targets(
-        main.reshape(B * F, 32, 256),
-        None if aux is None else aux.reshape(B * F, 32, 256), jm(mode))
-    j_lanes = np.asarray(j_lanes).reshape((B, F) + j_lanes.shape[1:])
-    j_bytes = np.asarray(j_bytes).reshape((B, F) + j_bytes.shape[1:])
-    j_ops, j_main, j_aux = jmesh.encode_movies_batch(
-        get_dist(jm(mode)), j_lanes, j_bytes, plan, jm(mode), seeds=seeds)
-    S = len(plan.step_frame)
-    want = jmesh.fetch_ops(j_ops, plan)[:, :S]
-
-    lanes, bytes_ = encoder.prepare_targets(main, aux, mode, "cpu")
-    assert np.array_equal(lanes.numpy(), j_lanes)
-    assert np.array_equal(bytes_.numpy(), j_bytes)
-    ops, fin_main, fin_aux = mesh.encode_movies_batch(
-        torch_dist(mode), lanes, bytes_, plan, mode, seeds=seeds)
-    assert ops.shape == (B, S * k * j * 6) and ops.dtype == torch.uint8
-    got = mesh.fetch_ops(ops, plan)
-    assert np.array_equal(got, want)
-    assert np.array_equal(fin_main.numpy(), np.asarray(j_main))
-    assert np.array_equal(fin_aux.numpy(), np.asarray(j_aux))
-    for i in range(B):
-        solo, solo_main, _ = encoder.encode_movie(
-            torch_dist(mode), lanes[i], bytes_[i], plan, mode,
-            seed=seeds[i])
-        assert np.array_equal(solo.numpy(), got[i]), i
-        assert np.array_equal(solo_main.numpy(), fin_main[i].numpy())
-
-
-@pytest.mark.parametrize("specs,fps,tps", [
-    # tests/test_mesh.py:26: (n_input_frames, n_ticks, seed)
-    ([(4, 2000, 0), (2, 900, 1)], 12.0, 14700.0),
-    # tests/test_mesh.py:65: a long-audio, short-video movie
-    ([(2, 1398, 0), (4, 500, 1)], 1.0, 350.0),
-])
-def test_mixed_matches_jax(specs, fps, tps):
-    """encode_movies_mixed (shared dominating plan, last-frame padding,
-    each movie cut to its own n_ops) equals the JAX one op for op."""
-    movies = []
-    for nf, nt, sd in specs:
-        main, aux = random_frames(jm(DHGR), nf, 40 + sd)
-        movies.append((main, aux, nf, nt))
-    seeds = [sd + 3 for _, _, sd in specs]
-    kw = dict(input_frame_rate=fps, ticks_per_second=tps,
-              every_n_video_frames=1, k=8, seeds=seeds)
-    j_flats, j_plan, j_n = jmesh.encode_movies_mixed(
-        get_dist(jm(DHGR)), movies, jm(DHGR), **kw)
-    flats, plan_max, n_ops = mesh.encode_movies_mixed(
-        torch_dist(DHGR), movies, DHGR, **kw)
-    assert n_ops == j_n and plan_max.n_ops == j_plan.n_ops
-    for got, want in zip(flats, j_flats):
-        assert got.shape == want.shape
-        assert np.array_equal(got, want)
 
 
 def test_fetch_ops_compact_matches_flatten():
