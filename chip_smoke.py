@@ -1,6 +1,7 @@
 """Smoke run of iivision_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # everything below
+    python3 chip_smoke.py --sweep    # the build and the body cluster sweep
 
 Builds the port's CUDA kernels from csrc/ with nvcc (one process per
 source, all at once) and checks each against its plain torch version on
@@ -29,13 +30,17 @@ the card, bit-equal:
   cost for every content) and at DHGR k=32 j=10 (every warp runs a slot),
   B = 1 and 32, seeded and deterministic; both rules also on the IIGS
   palette's tables (DHGR k=16 j=4, HGR k=8 j=1, B = 1 and 32, seeded and
-  deterministic);
-- kernel B (solo DHGR at both encoder settings, solo HGR, a case where
-  offset 0 is the only companion, batches of 32 DHGR and 8 HGR movies),
-  kernel B's joint variant (DHGR and HGR at k=16 j=4, and a crafted page
-  where a non-target content wins) - the card-side per-step reference,
-  which no path launches - and kernel C (the sub-op microbenchmark at
-  512 and 509 rows, T = 0, 1 and 100, with crafted rows).
+  deterministic); every case at the chooser's cluster size (timed) and
+  at every cluster size the kernel takes, 1, 2, 4, 8 and 16 CTAs per
+  movie (bit-equality only);
+- the body kernel's cluster sweep (`body_cluster_sweep`): device time at
+  each cluster size for DHGR (32, 10) B = 1 seeded and deterministic,
+  joint (32, 10) B = 1, (16, 4) B = 32, (8, 1) and (1, 1) B = 1 and HGR
+  (16, 4) B = 1, the chooser's size for each, the card's maximum active
+  clusters per size and rule, where the CTAs ran (`%smid` recorded per
+  CTA) and the host's time per body launch;
+- kernel C (the sub-op microbenchmark at 512 and 509 rows, T = 0, 1 and
+  100, with crafted rows).
 Each kernel's device time is the mean of many back-to-back launches
 between one event pair, queued behind a sleep so that the host's wrapper
 time stays outside the pair.
@@ -128,13 +133,11 @@ distance model to `Movie(dist=...)`.  Every whole-movie clip, the batch
 and the mesh batch print a `roofline[...]` line (`roofline.report` on the
 card's peaks) and fail unless its modelled chunk starts and bodies equal
 the launches counted on the path.
-Kernel B launching on any path fails the run.
 
 A last, uncounted phase traces 1 s clips with torch.profiler (solo and a
 batch of 32 at k=16 j=4, solo at k=8 j=1, solo joint at k=16 j=4): device
 busy share, kernel launches per plan step and the kernels that launch
-most, and holds kernel B's and the body kernel's timer figures against
-the profiler's.
+most, and holds the body kernel's timer figure against the profiler's.
 
 Every phase prints one line of numbers; any failure raises, giving a
 non-zero exit.  The last two lines are the kernel report and the device
@@ -144,6 +147,7 @@ package.  Store-cost tables it builds go to a temporary cache directory
 that is removed at exit.
 """
 
+import functools
 import hashlib
 import json
 import os
@@ -182,18 +186,10 @@ KERNELS = {
     "dist_pairs": ("editdist", "dist_pairs_elementwise", "launches",
                    "iivision_tpu_torch/csrc/editdist.cu",
                    "iivision_tpu/ops/distance.py:72"),
-    "subop_chain": ("subop", "sub_op_chain", "launches",
-                    "iivision_tpu_torch/csrc/subop.cu",
-                    "iivision_tpu/encoder.py:567"),
-    "subop_chain_joint": ("subop", "sub_op_chain_joint", "launches",
-                          "iivision_tpu_torch/csrc/subop.cu",
-                          "iivision_tpu/encoder.py:583"),
     "subop_bench": ("subop_bench", "run_kernel", "launches",
                     "iivision_tpu_torch/csrc/subop_bench.cu",
                     "tools/bench_subop_pallas.py:183"),
 }
-# kernel B: the card-side per-step reference; no path may launch it
-REFERENCE_ONLY = ("subop_chain", "subop_chain_joint")
 
 
 def wrapper(name):
@@ -210,8 +206,7 @@ def launch_count(name) -> int:
 
 def counted(path, want, fn, *args, **kw):
     """Run one path with every launch count at 0; fail unless each kernel
-    in `want` launched, and if kernel B did.  Returns (fn's result,
-    {kernel: launches})."""
+    in `want` launched.  Returns (fn's result, {kernel: launches})."""
     for name in KERNELS:
         setattr(wrapper(name), KERNELS[name][2], 0)
     t0 = time.time()
@@ -223,16 +218,17 @@ def counted(path, want, fn, *args, **kw):
         if launches[name] == 0:
             raise AssertionError("kernel %s never launched on path %s"
                                  % (name, path))
-    for name in REFERENCE_ONLY:
-        if launches[name]:
-            raise AssertionError("kernel %s launched on path %s"
-                                 % (name, path))
     return out, launches
 
 
-def main():
+def main(argv=()):
+    """The smoke; argv ["--sweep"]: the build and the body kernel's
+    cluster sweep alone (`body_cluster_sweep`)."""
     import torch
 
+    if list(argv) not in ([], ["--sweep"]):
+        print("usage: chip_smoke.py [--sweep]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "needs a CUDA card", file=sys.stderr)
@@ -264,14 +260,17 @@ def main():
 
     # -- 2. each kernel against its plain version -------------------------
     report = {}
+    if list(argv) == ["--sweep"]:
+        report["encode_body"] = {}
+        body_cluster_sweep(dev, report)
+        return 0
     check_kernel_a(dev, report)
     check_lane_dist(dev, report)
     check_chunk_start(dev, report)
     check_threefry(dev, report)
     check_body(dev, report)
     check_body(dev, report, joint=True)
-    check_kernel_b(dev, report)
-    check_kernel_b_joint(dev, report)
+    body_cluster_sweep(dev, report)
     check_kernel_c(dev, report)
     check_golden(dev)
     print("kernel checks done at %.1f s" % (time.time() - t_start))
@@ -920,6 +919,16 @@ def pick_body(plan) -> int:
     raise AssertionError("no body with a padded or a partial step")
 
 
+@functools.lru_cache(None)
+def window_table(dev, mode, palette):
+    """The (n_lanes * R, C) int16 store-cost table of `palette`'s window
+    model on the card, loaded once per mode and palette (read-only)."""
+    from iivision_tpu_torch.ops import distance
+
+    dist = distance.ComputedDistance(mode, palette, device=dev)
+    return dist.store_cost16.reshape(-1, dist.n_contents)
+
+
 def body_inputs(dev, mode, k: int, j: int, B: int, seed: int,
                 tie: bool = False, palette=None):
     """A real plan's body (1 s at 30 fps, every 2nd frame) with seeded
@@ -930,7 +939,7 @@ def body_inputs(dev, mode, k: int, j: int, B: int, seed: int,
     import torch
 
     from iivision_tpu_torch import encoder
-    from iivision_tpu_torch.ops import chunk_start, distance
+    from iivision_tpu_torch.ops import chunk_start
     from iivision_tpu_torch.palettes import Palette
 
     rng = np.random.RandomState(seed)
@@ -951,9 +960,7 @@ def body_inputs(dev, mode, k: int, j: int, B: int, seed: int,
           * random_state(dev, rng, (B, nb, 32, 256), 2))
     state = [up.contiguous(), random_state(dev, rng, (B, nb, 32, 256), 900),
              random_state(dev, rng, (B, nb, 32, 256), hi)]
-    dist = distance.ComputedDistance(mode, palette or Palette.NTSC,
-                                     device=dev)
-    table = dist.store_cost16.reshape(-1, dist.n_contents)
+    table = window_table(dev, mode, palette or Palette.NTSC)
     S = len(plan.step_frame)
     ops = torch.full((S, B, j, k, 6), 7, dtype=torch.uint8, device=dev)
     nvalid = torch.tensor(plan.step_nvalid, dtype=torch.int32, device=dev)
@@ -983,8 +990,12 @@ def check_body(dev, report, joint: bool = False):
     k=16 j=4 (the quality clip's setting) B = 1 and 32 and on HGR, plus
     bodies whose contents tie: dw all zero (no companion gain: the
     cheapest contents at the primary tie) and one cost for every content
-    (every content ties); DHGR k=32 j=10 (all 32 warps run a slot) and the
-    IIGS cases above, each at B = 1 and 32, seeded and deterministic."""
+    (every content ties); DHGR k=32 j=10 (all 32 pages run a slot) and the
+    IIGS cases above, each at B = 1 and 32, seeded and deterministic.
+    Each case runs at the chooser's cluster size (`body.cluster_size` on
+    the card's maximum active clusters; timed, beside its bound with the
+    nonce draws' int32 operations and its issue floor) and at every
+    cluster size the kernel takes, each bit-equal to the one plain run."""
     import torch
 
     from iivision_tpu_torch import roofline
@@ -1037,6 +1048,8 @@ def check_body(dev, report, joint: bool = False):
           for mode in (VideoMode[name_],)
           for B in batches for seeded in (True, False)),
         *iigs)
+    counts = body.max_active_clusters(dev, joint)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for mode, k, j, B, seeded, kind, tag in cases:
         plan, b0, state, lanes, bytes_tgt, table, nvalid, ops = body_inputs(
             dev, mode, k, j, B, 50 + len(entry) + 100 * joint, kind == "tie",
@@ -1048,24 +1061,29 @@ def check_body(dev, report, joint: bool = False):
         Sc = plan.chunk_steps
         frame, bank = int(plan.step_frame[b0]), int(plan.step_bank[b0])
         keys = trandom.key_words(range(B), dev) if seeded else None
-        got = [x.clone() for x in state] + [ops.clone()]
         want = [x.clone() for x in state] + [ops.clone()]
-        body.encode_body(*got[:3], lanes, bytes_tgt, frame, bank, table,
-                         keys, nvalid, b0, Sc, got[3], mode, joint)
         body.encode_body_plain(*want[:3], lanes, bytes_tgt, frame, bank,
                                table, keys, nvalid, b0, Sc, want[3], mode,
                                joint)
-        torch.cuda.synchronize()
-        err = max(int((g.int() - w.int()).abs().max())
-                  for g, w in zip(got, want))
-        if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
-            bad = [i for i, (g, w) in enumerate(zip(got, want))
-                   if not torch.equal(g, w)]
-            raise AssertionError("%s kernel (%s) disagrees with plain in %s "
-                                 "(up, dw, banks, ops)" % (
-                                     name, tag or mode.name, bad))
-        if not (got[3][b0:b0 + Sc] != 7).any():
-            raise AssertionError("%s %s wrote no record" % (name, tag))
+        chosen = body.cluster_size(B, k, j, joint, counts)
+        # the chooser's size (cluster=None), then every size
+        for c in (None,) + body.CLUSTER_SIZES:
+            got = [x.clone() for x in state] + [ops.clone()]
+            body.encode_body(*got[:3], lanes, bytes_tgt, frame, bank, table,
+                             keys, nvalid, b0, Sc, got[3], mode, joint,
+                             cluster=c)
+            torch.cuda.synchronize()
+            err = max(int((g.int() - w.int()).abs().max())
+                      for g, w in zip(got, want))
+            if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
+                bad = [i for i, (g, w) in enumerate(zip(got, want))
+                       if not torch.equal(g, w)]
+                raise AssertionError(
+                    "%s kernel (%s, cluster %s) disagrees with plain in %s "
+                    "(up, dw, banks, ops)" % (name, tag or mode.name,
+                                              c or "chosen", bad))
+            if not (got[3][b0:b0 + Sc] != 7).any():
+                raise AssertionError("%s %s wrote no record" % (name, tag))
         st = [x.clone() for x in state] + [ops.clone()]
         ms = cuda_ms(lambda: body.encode_body(
             *st[:3], lanes, bytes_tgt, frame, bank, table, keys, nvalid, b0,
@@ -1074,203 +1092,178 @@ def check_body(dev, report, joint: bool = False):
             *st[:3], lanes, bytes_tgt, frame, bank, table, keys, nvalid, b0,
             Sc, st[3], mode, joint), 2)
         nv = plan.step_nvalid[b0:b0 + Sc]
-        # bytes and float32 operations: roofline.body_cost
-        nbytes, ops_f, _ = roofline.body_cost(mode, k, j, B, Sc,
-                                              int((nv > 0).sum()), joint)
-        bnd = bound(nbytes, ops_f)
+        # bytes, float32 operations and the nonce draws' int32 operations:
+        # roofline.body_cost
+        nbytes, ops_f, ops_i = roofline.body_cost(
+            mode, k, j, B, Sc, int((nv > 0).sum()), joint, seeded)
+        bnd = bound(nbytes, ops_f, ops_i)
+        floor_ms = issue_floor_ms(ops_i, min(B * chosen, n_sm))
         print("%s %s k=%d j=%d B=%d seeded=%s %s steps=%d nvalid=%s: "
-              "max_abs_err=%d ms=%.4f plain_ms=%.4f bound_ms=%.5f (%s)" % (
+              "max_abs_err=0 at cluster %d (chosen) and at %s; ms=%.4f "
+              "plain_ms=%.4f bound_ms=%.5f (%s) issue_floor_ms=%.5f" % (
                   name, mode.name, k, j, B, seeded, kind or "", Sc,
-                  nv.tolist(), err, ms, plain_ms, bnd["bound_ms"],
-                  bnd["bound_by"]))
+                  nv.tolist(), chosen, list(body.CLUSTER_SIZES), ms,
+                  plain_ms, bnd["bound_ms"], bnd["bound_by"], floor_ms))
         entry["ms" + tag] = ms
         entry["plain_ms" + tag] = plain_ms
+        entry["cluster" + tag] = chosen
         if not tag:
-            entry.update(bnd)
+            entry.update(bnd, issue_floor_ms=floor_ms)
 
 
-def subop_inputs(dev, mode, k: int, j: int, seed: int, B: int = 1):
-    """Seeded kernel B inputs for B movies at the encoder's shapes for
-    `mode`: page rows, table rows on the main bank's lanes, the real NTSC
-    window store-cost table (DHGR: 4 x 8192 x 128, HGR: 2 x 16384 x 256),
-    and per-movie nonces, pages and padding bytes."""
-    import numpy as np
+def issue_floor_ms(int_ops: float, sms: int) -> float:
+    """The body kernel's own floor: its int32 operations issued at 64
+    lanes a clock on each of the `sms` SMs its launch uses, at
+    SM_CLOCK_HZ."""
+    return int_ops / (sms * 64 * SM_CLOCK_HZ) * 1e3
+
+
+# (mode name, k, j, B, seeded, joint) of the cluster sweep: the solo
+# headline's body both ways and joint, the batch at B = 32, the one-op
+# settings and HGR's 8-step body
+SWEEP = (("DHGR", 32, 10, 1, True, False), ("DHGR", 32, 10, 1, False, False),
+         ("DHGR", 32, 10, 1, True, True), ("DHGR", 16, 4, 32, True, False),
+         ("DHGR", 8, 1, 1, True, False), ("DHGR", 1, 1, 1, True, False),
+         ("HGR", 16, 4, 1, True, False))
+
+
+def placement(dev, args, B: int, c: int):
+    """One body launch of `args` at cluster size c with each CTA's SM
+    recorded: (distinct SMs, whether two CTAs of one cluster shared an
+    SM)."""
     import torch
 
-    from iivision_tpu_torch.ops import distance
-    from iivision_tpu_torch.palettes import Palette
-    from iivision_tpu_torch.screen import spec_for_mode
-    from iivision_tpu_torch.video_mode import VideoMode
+    from iivision_tpu_torch.ops import body
 
-    rng = np.random.RandomState(seed)
-    table16 = torch.as_tensor(
-        distance.store_cost_table(mode, Palette.NTSC, "window", dev),
-        device=dev)
-    R, C = table16.shape[1], table16.shape[2]
-    up = rng.randint(0, 3000, (B, k, 256)) * (rng.rand(B, k, 256) < 0.6)
-    up[:, 0] = 0  # one idle page per movie: its sub-ops are padding
-    dw = rng.randint(0, 900, (B, k, 256))
-    # screen bytes: 7 bits in DHGR, 8 (palette bit included) in HGR
-    by = rng.randint(0, 128 if mode == VideoMode.DHGR else 256, (B, k, 256))
-    tb = rng.randint(0, 256, (B, k, 256))
-    rows = torch.as_tensor(np.stack([up, dw, by, tb], axis=2),
-                           dtype=torch.float32, device=dev)
-    le, lo = spec_for_mode(mode).bank_lanes(False)
-    lane = np.where(np.arange(256) % 2 == 0, le, lo)
-    sc_rows = torch.as_tensor(lane * R + rng.randint(0, R, (B, k, 256)),
-                              dtype=torch.int32, device=dev)
-    nonce = torch.as_tensor(rng.rand(B, j, k, 256), dtype=torch.float32,
-                            device=dev)
-    pages = torch.as_tensor(np.stack([rng.permutation(32)[:k]
-                                      for _ in range(B)]),
-                            dtype=torch.int64, device=dev)
-    pad = torch.as_tensor(rng.randint(0, 256, B), dtype=torch.int32,
-                          device=dev)
-    return rows, sc_rows, table16.reshape(-1, C), nonce, pages, pad
+    smids = torch.full((B * c,), -1, dtype=torch.int32, device=dev)
+    body.encode_body(*args, cluster=c, smids=smids)
+    ids = smids.tolist()
+    if min(ids) < 0:
+        raise AssertionError("a CTA did not record its SM")
+    shared = any(len(set(ids[m * c:(m + 1) * c])) < c for m in range(B))
+    return len(set(ids)), shared
 
 
-def hold_chain(dev, entry, tag, joint, rows, sc_rows, table, nonce, pages,
-               nvalid, pad, reps=200):
-    """One kernel B call against the plain chain on the same inputs (rows
-    and records bit-equal), then both timed; records ms, plain_ms and
-    wrapper_ms (wrapper + launch, the smoke's earlier timer) under `tag` in
-    `entry`, and the bound of the untagged shape."""
+def enqueue_us(fn, n: int = 200) -> float:
+    """Host microseconds per call of fn() (a wrapper and its launch), over
+    n calls queued behind a device sleep, so that no call waits for the
+    card."""
     import torch
 
-    from iivision_tpu_torch.ops import subop
-
-    chain = subop.sub_op_chain_joint if joint else subop.sub_op_chain
-    B, k = rows.shape[:2]
-    j = 1 if nonce is None else nonce.shape[1]
-    out_k = torch.empty((B, j, k, 6), dtype=torch.uint8, device=dev)
-    out_p = torch.empty_like(out_k)
-    rows_k, rows_p = rows.clone(), rows.clone()
-    chain(rows_k, sc_rows, table, nonce, pages, nvalid, pad, out_k)
-    subop.sub_op_chain_plain(rows_p, sc_rows, table, nonce, pages, nvalid,
-                             pad, out_p, joint)
+    fn()
     torch.cuda.synchronize()
-    err = max(float((rows_k - rows_p).abs().max()),
-              float((out_k.int() - out_p.int()).abs().max()))
-    if not (torch.equal(rows_k, rows_p) and torch.equal(out_k, out_p)):
-        raise AssertionError("kernel B%s (%s) disagrees with plain"
-                             % (" joint" if joint else "", tag or "default"))
-    ms = cuda_ms(lambda r: chain(r, sc_rows, table, nonce, pages, nvalid,
-                                 pad, out_k), reps,
-                 setup=lambda: (rows.clone(),))
-    w_ms = wrapper_ms(lambda r: chain(r, sc_rows, table, nonce, pages,
-                                      nvalid, pad, out_k), reps,
-                      setup=lambda: (rows.clone(),))
-    plain_ms = cuda_ms(lambda r: subop.sub_op_chain_plain(
-        r, sc_rows, table, nonce, pages, nvalid, pad, out_p, joint),
-        3, setup=lambda: (rows.clone(),))
-    C = table.shape[1]
-    # rows read (4) and written (3), table rows, one table read per offset
-    # per sub-op (and every content for joint), nonces, records
-    nbytes = B * k * (7 * 256 * 4 + 256 * 4 + j * 256 * 2 * (
-        C + 1 if joint else 1) + j * 6 + 8) + B * 4
-    if nonce is not None:
-        nbytes += nonce.numel() * 4
-    print("kernel B%s B=%d C=%d k=%d j=%d: max_abs_err=%g ms=%.4f "
-          "wrapper_ms=%.4f plain_ms=%.4f bound_ms=%.5f" % (
-              " joint" if joint else "", B, C, k, j, err, ms, w_ms, plain_ms,
-              bound(nbytes)["bound_ms"]))
-    entry["max_abs_err"] = max(entry["max_abs_err"], err)
-    entry["ms" + tag] = ms
-    entry["wrapper_ms" + tag] = w_ms
-    entry["plain_ms" + tag] = plain_ms
-    if not tag:
-        entry.update(bound(nbytes))
-    return rows_k, out_k
-
-
-def check_kernel_b(dev, report):
-    """Kernel B against its plain version, rows and records bit-equal:
-    solo (B = 1) on DHGR at (k=8, j=1) and (k=16, j=4) and on HGR (C = 256)
-    at (k=8, j=1); batches of 32 DHGR movies at (16, 4) and 8 HGR movies at
-    (8, 1), each movie with its own pages, nonces and padding byte."""
-    import torch
-
-    from iivision_tpu_torch.ops import subop
-    from iivision_tpu_torch.video_mode import VideoMode
-
-    # the solo DHGR CLI default (k=8, j=1) gives ms / plain_ms; the other
-    # settings are reported beside it
-    entry = report["subop_chain"] = dict(max_abs_err=0.0)
-    for mode, B, k, j, seed, tag in (
-            (VideoMode.DHGR, 1, 8, 1, 19, ""),
-            (VideoMode.DHGR, 1, 16, 4, 27, "_k16_j4"),
-            (VideoMode.HGR, 1, 8, 1, 31, "_hgr"),
-            (VideoMode.DHGR, 32, 16, 4, 37, "_b32_k16_j4"),
-            (VideoMode.HGR, 8, 8, 1, 41, "_hgr_b8")):
-        rows, sc_rows, table, nonce, pages, pad = subop_inputs(
-            dev, mode, k, j, seed, B)
-        hold_chain(dev, entry, tag, False, rows, sc_rows, table, nonce,
-                   pages, k * j - 3, pad)
-
-    # offset 0 is each page's only companion: the later rounds find nothing
-    # and come back to offset 0, which must stay stored
-    k = 2
-    rows = torch.zeros((1, k, 4, 256), dtype=torch.float32, device=dev)
-    rows[0, :, 0, 10], rows[0, :, 0, 0] = 1000.0, 500.0
-    rows[0, :, 1, 10], rows[0, :, 1, 0] = 900.0, 800.0
-    rows[0, :, 3, 10] = 5.0
-    args = (torch.zeros((1, k, 256), dtype=torch.int32, device=dev),
-            torch.zeros((1, 128), dtype=torch.int16, device=dev), None,
-            torch.tensor([[3, 7]], dtype=torch.int64, device=dev), k,
-            torch.zeros(1, dtype=torch.int32, device=dev))
-    outs = [torch.empty((1, 1, k, 6), dtype=torch.uint8, device=dev)
-            for _ in range(2)]
-    got, want = rows.clone(), rows.clone()
-    subop.sub_op_chain(got, *args, outs[0])
-    subop.sub_op_chain_plain(want, *args, outs[1])
+    torch.cuda._sleep(int(0.1 * 2e9))  # about 0.1 s at 2e9 cycles a second
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
     torch.cuda.synchronize()
-    print("kernel B offset-0 companion: up[0]=%g by[0]=%g (plain %g, %g)" % (
-        got[0, 0, 0, 0], got[0, 0, 2, 0], want[0, 0, 0, 0],
-        want[0, 0, 2, 0]))
-    if not (torch.equal(got, want) and torch.equal(*outs)):
-        raise AssertionError("kernel B drops an offset-0 companion")
+    return us
 
 
-def check_kernel_b_joint(dev, report):
-    """Kernel B's joint variant against the plain joint chain, bit-equal:
-    DHGR (C = 128) and HGR (C = 256) at (k=16, j=4), seeded, and a crafted
-    page where content 7 beats the target byte 5, so the primary keeps its
-    residual (up = dw = 100 at offset 10)."""
-    import numpy as np
+def host_us(call, n: int = 200) -> dict:
+    """Host microseconds per call of a kernel wrapper: the whole call
+    (`enqueue_us`), its Python side alone (the C entry replaced by a no-op)
+    and the CUDA runtime's launch call inside it (torch.profiler's CPU
+    time of that API call, over n calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from iivision_tpu_torch import _build
+
+    out = dict(call=enqueue_us(call, n))
+    real = _build.launch
+    _build.launch = lambda *args: None
+    try:
+        out["python"] = enqueue_us(call, n)
+    finally:
+        _build.launch = real
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(0.1 * 2e9))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(n):
+            call()
+    torch.cuda.synchronize()
+    for e in prof.key_averages():
+        if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernel", "cuLaunchKernelEx"):
+            out[e.key] = e.cpu_time_total / max(e.count, 1)
+    return out
+
+
+def body_cluster_sweep(dev, report):
+    """The body kernel's device time at every cluster size, each call on
+    the same fresh state (SWEEP), beside the chooser's size, the design's
+    issue floor at each size and the card's maximum active clusters per
+    size and rule; then where the CTAs ran, each CTA's SM recorded at
+    every size for the solo (32, 10) body and the B = 32 batch; and the
+    host's time per body launch (`host_us`).  Fails unless the solo
+    headline's body runs on more than one SM."""
     import torch
 
+    from iivision_tpu_torch import roofline
+    from iivision_tpu_torch.ops import body
+    from iivision_tpu_torch.ops import random as trandom
     from iivision_tpu_torch.video_mode import VideoMode
 
-    entry = report["subop_chain_joint"] = dict(max_abs_err=0.0)
-    for mode, seed, tag in ((VideoMode.DHGR, 43, ""),
-                            (VideoMode.HGR, 47, "_hgr")):
-        inputs = subop_inputs(dev, mode, 16, 4, seed)
-        hold_chain(dev, entry, tag, True, *inputs[:5], 16 * 4 - 3,
-                   inputs[5], reps=50)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    counts = {joint: body.max_active_clusters(dev, joint)
+              for joint in (False, True)}
+    print("body max_active_clusters (cluster size: clusters; %d SMs): "
+          "default %s joint %s" % (n_sm, counts[False], counts[True]))
+    sweep = report["encode_body"]["sweep"] = []
+    for mode_name, k, j, B, seeded, joint in SWEEP:
+        mode = VideoMode[mode_name]
+        plan, b0, state, lanes, bytes_tgt, table, nvalid, ops = body_inputs(
+            dev, mode, k, j, B, 77)
+        Sc = plan.chunk_steps
+        frame, bank = int(plan.step_frame[b0]), int(plan.step_bank[b0])
+        keys = trandom.key_words(range(B), dev) if seeded else None
+        rest = (lanes, bytes_tgt, frame, bank, table, keys, nvalid, b0, Sc,
+                ops, mode, joint)
 
-    up = np.zeros(256)
-    dw = np.zeros(256)
-    tb = np.zeros(256)
-    up[10], dw[10], tb[10] = 1000, 900, 5
-    table = np.full((256, 128), 1000)
-    table[10, 5], table[10, 7] = 0, 100
-    for t in (20, 30, 40):
-        up[t], dw[t] = 100, 800
-        table[t, 5], table[t, 7] = 800, 0
-    rows = torch.as_tensor(np.stack([up, dw, np.zeros(256), tb])[None, None],
-                           dtype=torch.float32, device=dev)
-    rows_k, out_k = hold_chain(
-        dev, dict(max_abs_err=0.0), "", True, rows,
-        torch.arange(256, dtype=torch.int32, device=dev)[None, None].clone(),
-        torch.as_tensor(table, dtype=torch.int16, device=dev), None,
-        torch.tensor([[3]], dtype=torch.int64, device=dev), 1,
-        torch.zeros(1, dtype=torch.int32, device=dev), reps=5)
-    rec = out_k[0, 0, 0].tolist()
-    print("kernel B joint crafted page: record %s, up[10]=%g dw[10]=%g" % (
-        rec, rows_k[0, 0, 0, 10], rows_k[0, 0, 1, 10]))
-    if rec != [35, 7, 10, 20, 30, 40] or rows_k[0, 0, 0, 10] != 100 \
-            or rows_k[0, 0, 1, 10] != 100:
-        raise AssertionError("joint content on the crafted page: %s" % rec)
+        def fresh():
+            return tuple(x.clone() for x in state)
+
+        def timed(**kw):
+            return cuda_ms(lambda u, d, b: body.encode_body(u, d, b, *rest,
+                                                            **kw),
+                           30 if joint else 50, setup=fresh)
+
+        ms = {c: timed(cluster=c) for c in body.CLUSTER_SIZES}
+        chosen = body.cluster_size(B, k, j, joint, counts[joint])
+        nv = plan.step_nvalid[b0:b0 + Sc]
+        _, _, ops_i = roofline.body_cost(mode, k, j, B, Sc,
+                                         int((nv > 0).sum()), joint, seeded)
+        rec = dict(mode=mode_name, k=k, j=j, B=B, seeded=seeded, joint=joint,
+                   ms=ms, chosen=chosen,
+                   floor_ms={c: issue_floor_ms(ops_i, min(B * c, n_sm))
+                             for c in body.CLUSTER_SIZES})
+        line = "body_cluster_sweep %s k=%d j=%d B=%d seeded=%s joint=%s " \
+            "steps=%d run=%d:" % (mode_name, k, j, B, seeded, joint, Sc,
+                                  int((nv > 0).sum()))
+        for c in body.CLUSTER_SIZES:
+            line += " c=%d ms=%.4f (issue_floor_ms=%.5f)" % (
+                c, ms[c], rec["floor_ms"][c])
+        print("%s; chosen c=%d: %.4f ms, %.3fx of c=1, within 5%% of c=1: "
+              "%s" % (line, chosen, ms[chosen], ms[chosen] / ms[1],
+                      ms[chosen] <= 1.05 * ms[1]))
+        args = (*fresh(), *rest)
+        if (mode_name, k, j, B, seeded, joint) == SWEEP[0] or B == 32:
+            for c in body.CLUSTER_SIZES:
+                sms, shared = placement(dev, args, B, c)
+                print("body placement B=%d c=%d: %d CTAs on %d SMs, two "
+                      "CTAs of a cluster shared an SM: %s" % (
+                          B, c, B * c, sms, shared))
+                rec["placement_c%d" % c] = (sms, shared)
+        if (mode_name, k, j, B, seeded, joint) == SWEEP[0]:
+            if chosen < 2 or rec["placement_c%d" % chosen][0] < 2:
+                raise AssertionError("the solo (32, 10) body runs on one SM")
+            st = fresh()
+            rec["host_us"] = host_us(lambda: body.encode_body(*st, *rest))
+            print("body DHGR k=32 j=10 B=1 host us per launch: %s"
+                  % json.dumps(rec["host_us"]))
+        sweep.append(rec)
 
 
 # Dependent cycles of one kernel C sub-op, from its instruction sequence,
@@ -1473,14 +1466,15 @@ def run_movie(dev, dists, mode, k: int, j: int, seconds: int,
 
 def roofline_line(what, dev, plan, mode, batch: int, seconds: float,
                   launched, model: str = "window", joint: bool = False,
-                  shards: int = 1):
-    """Print `roofline.report`'s line for one encode of `seconds` and fail
-    unless its modelled chunk starts and bodies equal the counted
-    launches, `launched` = (chunk starts, bodies) of every instantiation."""
+                  shards: int = 1, seeded: bool = True):
+    """Print `roofline.report`'s line for one encode of `seconds` (seeded:
+    its nonce draws counted) and fail unless its modelled chunk starts and
+    bodies equal the counted launches, `launched` = (chunk starts, bodies)
+    of every instantiation."""
     from iivision_tpu_torch import roofline
 
     rec = roofline.report(plan, mode, batch, seconds, dev, model, joint,
-                          shards)
+                          shards, seeded)
     print("%s (%s; counted %d chunk starts / %d bodies)"
           % (rec["line"], what, *launched))
     if tuple(launched) != (rec["chunk_starts"], rec["bodies"]):
@@ -2640,13 +2634,13 @@ def trace_encodes(dev, report, seconds: float = 1.0, B: int = 32):
     a batch of B at k=16 j=4, solo at k=8 j=1, solo joint at k=16 j=4 -:
     device busy share (kernel time over encode wall), kernel launches per
     plan step, and the device kernels that launch most.  Then the
-    profiler's per-launch device time of the body kernel and of kernel B
-    (50 launches at the DHGR k=8 j=1 shape) beside the event timer's."""
+    profiler's per-launch device time of the body kernel beside the event
+    timer's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from iivision_tpu_torch import encoder
-    from iivision_tpu_torch.ops import distance, subop
+    from iivision_tpu_torch.ops import distance
     from iivision_tpu_torch.palettes import Palette
     from iivision_tpu_torch.parallel import mesh
     from iivision_tpu_torch.video_mode import VideoMode
@@ -2694,24 +2688,6 @@ def trace_encodes(dev, report, seconds: float = 1.0, B: int = 32):
               "(a whole clip's bodies) against the event timer's %.2f us "
               "(one body, repeated)" % (body_us,
                                         report["encode_body"]["ms"] * 1e3))
-
-    rows, sc_rows, table, nonce, pages, pad = subop_inputs(
-        dev, mode, 8, 1, 19)
-    out = torch.empty((1, 1, 8, 6), dtype=torch.uint8, device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(50):
-            subop.sub_op_chain(rows, sc_rows, table, nonce, pages, 5, pad,
-                               out)
-        torch.cuda.synchronize()
-    by_name, _ = profiled_kernels(prof)
-    n, us = sum(v[0] for k_, v in by_name.items() if "subop_chain" in k_), \
-        sum(v[1] for k_, v in by_name.items() if "subop_chain" in k_)
-    entry = report["subop_chain"]
-    entry["profiler_ms"] = us / max(n, 1) / 1e3
-    print("kernel B DHGR k=8 j=1 B=1: profiler device_ms=%.4f (%d launches) "
-          "event timer ms=%.4f wrapper_ms=%.4f" % (
-              entry["profiler_ms"], n, entry["ms"], entry["wrapper_ms"]))
 
 
 def trace_mesh(dist, lanes_b, bytes_b, mode, seconds: float):
@@ -2922,4 +2898,4 @@ def run_bench_config(name, ctx):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

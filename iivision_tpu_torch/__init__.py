@@ -29,9 +29,9 @@ What runs through `jax` there is written here in torch:
 - `ops.chunk_start`: the encoder's chunk-start diff and priority update
   (CUDA);
 - `ops.body`: one chunk body of the encoder - page top-k, nonces and the
-  sub-op chain - in one launch (CUDA);
-- `ops.subop`: the per-step sub-op chain, default and joint content
-  (kernel B, CUDA);
+  sub-op chain - in one launch (CUDA, a thread-block cluster per movie);
+- `ops.subop`: the per-step sub-op chain, default and joint content, in
+  plain torch (what the body's plain version runs);
 - `ops.subop_bench`: the sub-op microbenchmark's math (kernel C, CUDA);
 - `ops.resize`: the batched Lanczos resize (float64 einsums);
 - `ops.dither`: the ordered, HGR and mono quantizers and screen packing;

@@ -353,7 +353,9 @@ def run_case(name: str, entry: Entry, ctx: Context, reps: int,
         if keep is not None:
             keep["out"] = out
         if on_card and case.encodes:
-            model = [roofline.encode_cost(p, m, b, model, joint)
+            # every configuration encodes with a seed: nonces drawn
+            model = [roofline.encode_cost(p, m, b, model, joint,
+                                          seeded=True)
                      for p, m, b, model, joint in case.encodes]
             want = (sum(c.chunk_starts for c in model),
                     sum(c.bodies for c in model))
@@ -365,7 +367,7 @@ def run_case(name: str, entry: Entry, ctx: Context, reps: int,
             r = roofline.report(
                 plan, mode, batch,
                 rec["timings"][case.roofline_stage]["median"], dev, model,
-                joint)
+                joint, seeded=True)
             print(r["line"] + " (%s)" % name, file=sys.stderr, flush=True)
             rec["roofline"] = {k: r[k] for k in (
                 "line", "least_ms", "bound_share_pct", "hbm_pct_of_peak",

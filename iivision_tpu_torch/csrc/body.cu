@@ -5,16 +5,16 @@
 // for DHGR and HGR and every colour model, with either content rule: the
 // default (the target byte at the primary offset) and the joint rule of
 // `--joint_content` (encoder.py:583-610, :663-676), one instantiation each
-// (template <bool kJoint>).  One launch runs steps s0 .. s0+Sc-1 of the
-// plan.  Each step:
+// (template <bool kJoint>, times the five cluster sizes).  One launch runs
+// steps s0 .. s0+Sc-1 of the plan.  Each step:
 //   1. page scores: max(up) over each page's 256 offsets, times 256, plus
 //      255 x the page's nonce (two roundings, as the two torch ops do);
 //   2. the k best pages, stably: rank_p = #{q: s_q > s_p} + #{q < p:
 //      s_q == s_p}, the order of torch.sort(stable=True) and lax.top_k;
-//   3. j sequential sub-ops on each selected page (kernel B's arithmetic,
-//      op for op: csrc/subop.cu): primary offset by argmax of up*256 +
-//      nonce*255, the content byte, three companion rounds against
-//      dw - cost, gated updates, one record per sub-op.
+//   3. j sequential sub-ops on each selected page (the arithmetic of
+//      ops/subop.sub_op_chain_plain, op for op): primary offset by argmax
+//      of up*256 + nonce*255, the content byte, three companion rounds
+//      against dw - cost, gated updates, one record per sub-op.
 // A step whose plan nvalid is 0 is skipped whole: no state change, no nonce
 // draw; its records stay the padding op the caller wrote.
 //
@@ -28,7 +28,7 @@
 // term is an integer below 2^18, exact in float32, so the top three may be
 // found in any order.  Slot r's warp does it alone: it lists the page's
 // eligible offsets (up > 0, not the primary) in ascending order in a
-// per-warp shared-memory list (table row x C, dw + 2^23), then each lane
+// per-page shared-memory list (table row x C, dw + 2^23), then each lane
 // owns four consecutive contents per pass of 128 (one pass for DHGR's
 // C = 128, two for HGR's 256) and keeps their top threes in registers;
 // each listed offset costs one 8-byte table load per lane (the warp's 32
@@ -49,55 +49,91 @@
 //   threefry(key; 0, n); the float is (bits >> 9 | 0x3F800000) - 1.
 // The deterministic encoder (keys NULL) uses zeros.
 //
-// Grid B: one block per movie, 1024 threads (32 warps).  The active bank's
-// state lives in dynamic shared memory for the whole body (96 KB, plus
-// 64 KB of per-warp offset lists for the joint rule): up and dw as float32
-// (converted from the int32 state with __int2float_rn, as torch's
-// .to(float32) rounds), by and tb as uint8, and each offset's store-cost
-// table row (lane * R + target lane value) as uint16.  Warp p reduces page
-// p's maximum; warp 0 ranks; warp r < k then runs slot r's sub-ops on its
-// own page, each lane holding 8 offsets (t = 32 i + lane) in registers,
-// each argmax a local 8-way scan plus five butterfly shuffles with kernel
-// B's tie rule (the first maximal index; warp_argmax.cuh, which kernel C,
-// the sub-op microbenchmark, shares).  No block barrier sits inside a
-// sub-op chain.  At the end up and dw go back to int32 with __float2int_rz
-// (torch's truncation) and by to the bank bytes.
+// A thread-block cluster per movie.  Cluster sizes c = 1, 2, 4, 8 or 16:
+// CTA q of movie b's cluster (block b * c + q) owns the P = 32 / c pages
+// q * P .. q * P + P - 1 and runs P warps, warp w on page q * P + w.  The
+// CTA keeps its pages' state in dynamic shared memory for the whole body
+// (3 KB a page, plus a 2 KB offset list a page for the joint rule): up and
+// dw as float32 (converted from the int32 state with __int2float_rn, as
+// torch's .to(float32) rounds), the table row (lane * R + target lane
+// value) as uint16, by and tb as uint8.  Each step:
+//   - warp w reduces its page's maximum, adds the page nonce and writes
+//     the score into every CTA of the cluster (distributed shared memory:
+//     lane q' stores to CTA q');
+//   - one cluster barrier (release / acquire), so every CTA holds all 32
+//     scores; the score arrays are double-buffered by the parity of the
+//     count of steps run (a padded step runs no barrier), so no CTA
+//     overwrites scores a peer still ranks from;
+//   - warp w ranks its own page from the local copy (a ballot of the rule
+//     above) and, if rank < k, runs slot r = rank on it: r gives the
+//     nonce counter, the nvalid gate and the record index.
+// A warp touches only its own page's state, so no block barrier and no
+// cluster barrier sits inside a sub-op chain.  Each lane holds 8 offsets
+// (t = 32 i + lane) in registers during a slot, each argmax a local 8-way
+// scan plus five butterfly shuffles with the first-maximal-index rule
+// (warp_argmax.cuh, which kernel C, the sub-op microbenchmark, shares).
+// At the end up and dw go back to int32 with __float2int_rz (torch's
+// truncation) and by to the bank bytes.  A cluster barrier after the
+// prologue makes sure every CTA of the cluster runs before a peer stores
+// into its shared memory; every store into a peer lands before that
+// step's barrier, which the peer passes before it can exit, so no further
+// barrier is needed at the end.  On an idle H100 the 16 CTAs of one
+// movie's cluster land on 16 SMs without asking for more shared memory
+// than their pages need; a batch's clusters share SMs where they must.
 //
 // What bounds it: per movie and body about 0.5 MB of traffic (state in and
 // out, targets, table reads, records), 0.15 us at 3.35 TB/s, so memory is
-// not the limit.  The default rule's floor is the dependent chain: Sc steps
-// x (one page reduction + one rank + j x 4 warp argmaxes), each argmax a
-// few hundred cycles of shuffles, plus 8 threefry blocks per lane per
-// sub-op.  The joint rule adds, per sub-op and page, up to 256 x C table
-// reads and top-three inserts on one warp: its floor is that warp's
-// instruction stream (about 30 instructions per listed offset and lane per
-// pass) and the L2 latency of its table loads, which the eight loads in
-// flight and the other slots' warps hide (on an H100, eight in flight
-// ran a DHGR k=16 j=4 body 22% faster than four).  A batch fills B SMs;
-// one movie runs on one SM.
+// not the limit.  A seeded body's int32 work is its nonce draws: per step
+// run, 2 + 32 + 257 k j threefry blocks of about 79 instructions (the
+// rotation one funnel shift; `threefry2x32` below) and 3 bit operations
+// per uniform; about 6.7 M at k=32 j=10.  With one CTA per movie all of
+// it issued on one SM (about 52 us at 64 int32 lanes and 1.98 GHz); the
+// cluster spreads the slots, and so the draws, over c SMs.  The rest is
+// the dependent chain: Sc steps x (one page reduction + a barrier + one
+// rank + j x 4 warp argmaxes).  The joint rule adds, per sub-op and page,
+// up to 256 x C table reads and top-three inserts on one warp: its floor
+// is that warp's instruction stream (about 30 instructions per listed
+// offset and lane per pass) and the L2 latency of its table loads, which
+// the eight loads in flight and the other slots' warps hide (on an H100,
+// eight in flight ran a DHGR k=16 j=4 body 22% faster than four).
 //
 // iiv_threefry_uniform exposes the same threefry to tests: it writes the
 // nonces of given keys and steps in ops/random.step_nonces' layout.
 
+#include <atomic>
 #include <cfloat>
 #include <climits>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "warp_argmax.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kPages = 32;
 constexpr int kOffsets = 256;
 constexpr int kCells = kPages * kOffsets;  // one bank: 8192 bytes
-constexpr int kThreads = 1024;             // 32 warps
-// dynamic shared memory: up, dw (float), row (uint16), by, tb (uint8)
-constexpr int kSmemBytes = kCells * (4 + 4 + 2 + 1 + 1);
-// the joint rule's per-warp lists of eligible offsets: (row * C, dw + 2^23)
-// as an int2, 256 entries each
-constexpr int kListBytes = (kThreads / 32) * kOffsets * (4 + 4);
+// dynamic shared memory per page: up, dw (float), row (uint16), by, tb
+// (uint8)
+constexpr int kPageBytes = kOffsets * (4 + 4 + 2 + 1 + 1);
+// the joint rule's per-page list of eligible offsets: (row * C, dw + 2^23)
+// as an int2, 256 entries
+constexpr int kListBytes = kOffsets * (4 + 4);
 constexpr int kJointBatch = 8;  // table loads in flight per lane
+
+// a CTA's dynamic shared memory for `pages` pages
+constexpr int smem_bytes(bool joint, int pages) {
+  return pages * (kPageBytes + (joint ? kListBytes : 0));
+}
+
+__device__ __forceinline__ int sm_id() {
+  int id;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(id));
+  return id;
+}
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -172,6 +208,7 @@ struct Body {
   const uint32_t* keys;      // (B, 2) or NULL
   const int32_t* nvalid;     // (S,) the plan's step_nvalid
   uint8_t* ops;              // (S, B, j, k, 6) records
+  int32_t* smid;             // (B * c,) each CTA's SM, or NULL
   int B, n_banks, bank, F, frame, n_lanes, lane_e, lane_o, R, C, s0, Sc, k,
       j;
 };
@@ -255,16 +292,15 @@ __device__ int joint_content(const Body& a, const uint16_t* row_p,
   return bi;
 }
 
-// Slot r's j sub-ops on page P (one warp; kernel B's math per offset).
+// Slot r's j sub-ops on page P (one warp; the plain sub-op chain's math
+// per offset).  up_p .. tb_p: the page's state in shared memory.
 template <bool kJoint>
-__device__ void run_slot(const Body& a, float* up_s, float* dw_s,
-                         const uint16_t* row_s, uint8_t* by_s,
-                         const uint8_t* tb_s, int movie, int s, int r, int P,
+__device__ void run_slot(const Body& a, float* up_p, float* dw_p,
+                         const uint16_t* row_p, uint8_t* by_p,
+                         const uint8_t* tb_p, int movie, int s, int r, int P,
                          int nv, bool seeded, uint2 skey, int pad,
                          int2* list) {
   const int lane = threadIdx.x & 31;
-  float* up_p = up_s + P * kOffsets;
-  float* dw_p = dw_s + P * kOffsets;
   float upv[kPerLane], dwv[kPerLane];
 #pragma unroll
   for (int i = 0; i < kPerLane; ++i) {
@@ -293,9 +329,9 @@ __device__ void run_slot(const Body& a, float* up_s, float* dw_s,
     }
     warp_argmax(bv, bi);
     const int off0 = bi;
-    const int content =
-        kJoint ? joint_content(a, row_s + P * kOffsets, upv, dwv, off0, list)
-               : tb_s[P * kOffsets + off0];
+    const int content = kJoint
+                            ? joint_content(a, row_p, upv, dwv, off0, list)
+                            : tb_p[off0];
 
     // companions: pending offsets the store improves, three rounds
     float scv[kPerLane], sl[kPerLane];
@@ -303,7 +339,7 @@ __device__ void run_slot(const Body& a, float* up_s, float* dw_s,
     for (int i = 0; i < kPerLane; ++i) {
       const int o = i * 32 + lane;
       scv[i] = static_cast<float>(
-          a.table[(int)row_s[P * kOffsets + o] * a.C + (content & (a.C - 1))]);
+          a.table[(int)row_p[o] * a.C + (content & (a.C - 1))]);
       const float score = __fsub_rn(dwv[i], scv[i]);
       sl[i] = (upv[i] > 0.f && score > 0.f && o != off0) ? score : -1.f;
     }
@@ -318,10 +354,10 @@ __device__ void run_slot(const Body& a, float* up_s, float* dw_s,
           // the joint rule keeps the primary's residual
           upv[i] = kJoint ? scv[i] : 0.f;
           dwv[i] = kJoint ? scv[i] : 0.f;
-          by_s[P * kOffsets + o] = static_cast<uint8_t>(content);
+          by_p[o] = static_cast<uint8_t>(content);
         } else if ((comp >> i) & 1u) {
           upv[i] = scv[i];
-          by_s[P * kOffsets + o] = static_cast<uint8_t>(content);
+          by_p[o] = static_cast<uint8_t>(content);
         }
       }
     }
@@ -343,82 +379,103 @@ __device__ void run_slot(const Body& a, float* up_s, float* dw_s,
   }
 }
 
-template <bool kJoint>
-__global__ void __launch_bounds__(kThreads, 1) encode_body_kernel(Body a) {
-  extern __shared__ float smem[];
-  float* up_s = smem;
-  float* dw_s = up_s + kCells;
-  uint16_t* row_s = reinterpret_cast<uint16_t*>(dw_s + kCells);
-  uint8_t* by_s = reinterpret_cast<uint8_t*>(row_s + kCells);
-  uint8_t* tb_s = by_s + kCells;
-  // the joint rule's offset lists, kOffsets entries per warp
-  int2* list = reinterpret_cast<int2*>(tb_s + kCells);
-  __shared__ float score_s[kPages];
-  __shared__ int slot_page[kPages];
+// One CTA of a movie's cluster: kWarps pages, a warp each (the header).
+// The cluster's size is the instantiation's, fixed at compile time, so a
+// plain launch makes the clusters: the launch loop's host time carries no
+// launch attribute for the runtime to read.  __launch_bounds__ lets a CTA
+// of fewer warps hold more registers a thread (64 at 32 warps, 128 at 16,
+// 255 below).
+template <bool kJoint, int kWarps>
+__global__ void __cluster_dims__(kPages / kWarps, 1, 1)
+    __launch_bounds__(kWarps * 32, 1) encode_body_kernel(Body a) {
+  constexpr int kCellsCta = kWarps * kOffsets;
+  constexpr int kCluster = kPages / kWarps;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* up_s = reinterpret_cast<float*>(smem);
+  float* dw_s = up_s + kCellsCta;
+  uint16_t* row_s = reinterpret_cast<uint16_t*>(dw_s + kCellsCta);
+  uint8_t* by_s = reinterpret_cast<uint8_t*>(row_s + kCellsCta);
+  uint8_t* tb_s = by_s + kCellsCta;
+  // the joint rule's offset lists, kOffsets entries per page
+  int2* list = reinterpret_cast<int2*>(tb_s + kCellsCta);
+  // every page's score of a step, double-buffered (the header)
+  __shared__ float score_s[2][kPages];
 
-  const int movie = blockIdx.x, t = threadIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int q = static_cast<int>(cluster.block_rank());
+  const int movie = blockIdx.x / kCluster, t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
-  const size_t cell0 = ((size_t)movie * a.n_banks + a.bank) * kCells;
+  const int page = q * kWarps + warp;  // this warp's page
+  // the CTA's cells: pages q * kWarps .. of the bank, kCellsCta of them
+  const size_t cell0 = ((size_t)movie * a.n_banks + a.bank) * kCells +
+                       (size_t)q * kCellsCta;
   const size_t tb0 = (((size_t)movie * a.F + a.frame) * 2 + a.bank) * kCells;
   const size_t ln0 = ((size_t)movie * a.F + a.frame) * kPages * 128 *
                      a.n_lanes;
-  for (int e = t; e < kCells; e += kThreads) {
+  // kPerLane cells a thread at every cluster size, unrolled so that their
+  // loads are in flight together
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) {
+    const int e = i * kWarps * 32 + t;
     up_s[e] = __int2float_rn(a.up[cell0 + e]);
     dw_s[e] = __int2float_rn(a.dw[cell0 + e]);
     by_s[e] = static_cast<uint8_t>(a.banks[cell0 + e]);
-    tb_s[e] = static_cast<uint8_t>(a.bytes_tgt[tb0 + e]);
-    const int o = e & (kOffsets - 1);
+    const int g = q * kCellsCta + e;  // the cell in the bank
+    tb_s[e] = static_cast<uint8_t>(a.bytes_tgt[tb0 + g]);
+    const int o = g & (kOffsets - 1);
     const int ln = (o & 1) ? a.lane_o : a.lane_e;
-    const int tgt = a.lanes_tgt[ln0 + ((size_t)(e >> 8) * 128 + (o >> 1)) *
+    const int tgt = a.lanes_tgt[ln0 + ((size_t)(g >> 8) * 128 + (o >> 1)) *
                                           a.n_lanes + ln];
     row_s[e] = static_cast<uint16_t>(ln * a.R + tgt);
   }
+  if (a.smid != nullptr && t == 0) a.smid[blockIdx.x] = sm_id();
   const bool seeded = a.keys != nullptr;
   const uint2 key = seeded ? make_uint2(a.keys[2 * movie], a.keys[2 * movie + 1])
                            : make_uint2(0u, 0u);
-  __syncthreads();
   // the padding op's content: the target byte at page 0, offset 0
-  const int pad = tb_s[0];
+  const int pad = static_cast<uint8_t>(a.bytes_tgt[tb0]);
+  float* const up_p = up_s + warp * kOffsets;
+  cluster.sync();  // the state is loaded and every CTA of the cluster runs
 
+  int run = 0;  // steps run: the parity picks the score buffer
   for (int s = a.s0; s < a.s0 + a.Sc; ++s) {
     const int nv = a.nvalid[s];
-    if (nv == 0) continue;  // a padded step: uniform over the block
+    if (nv == 0) continue;  // a padded step: uniform over the cluster
     const uint2 skey = seeded ? fold_in(key, (uint32_t)s) : make_uint2(0u, 0u);
 
-    // warp p: page p's score
-    const float* u = up_s + warp * kOffsets;
-    float m = u[lane];
+    // this warp's page score, into every CTA's buffer
+    float m = up_p[lane];
 #pragma unroll
-    for (int i = 1; i < kPerLane; ++i) m = fmaxf(m, u[i * 32 + lane]);
+    for (int i = 1; i < kPerLane; ++i) m = fmaxf(m, up_p[i * 32 + lane]);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
-    if (lane == 0) {
-      float sc = __fmul_rn(m, 256.f);
-      if (seeded)
-        sc = __fadd_rn(sc, __fmul_rn(uniform_at(fold_in(skey, 0u), warp),
-                                     255.f));
-      score_s[warp] = sc;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      const float sp = score_s[lane];
-      int rank = 0;
-      for (int q = 0; q < kPages; ++q) {
-        const float sq = score_s[q];
-        rank += (sq > sp) || (sq == sp && q < lane);
-      }
-      if (rank < a.k) slot_page[rank] = lane;
-    }
-    __syncthreads();
-    if (warp < a.k)
-      run_slot<kJoint>(a, up_s, dw_s, row_s, by_s, tb_s, movie, s, warp,
-                       slot_page[warp], nv, seeded, skey, pad,
-                       list + warp * kOffsets);
-    __syncthreads();
+    float sc = __fmul_rn(m, 256.f);
+    if (seeded)
+      sc = __fadd_rn(sc, __fmul_rn(uniform_at(fold_in(skey, 0u), page),
+                                   255.f));
+    float* const buf = score_s[run & 1];
+    if (lane < kCluster) cluster.map_shared_rank(buf, lane)[page] = sc;
+    __syncwarp();
+    cluster.sync();
+
+    // rank_p = #{q: s_q > s_p} + #{q < p: s_q == s_p}
+    const float sq = buf[lane], sp = buf[page];
+    const int r =
+        __popc(__ballot_sync(kFull, sq > sp || (sq == sp && lane < page)));
+    if (r < a.k)
+      run_slot<kJoint>(a, up_p, dw_s + warp * kOffsets,
+                       row_s + warp * kOffsets, by_s + warp * kOffsets,
+                       tb_s + warp * kOffsets, movie, s, r, page, nv, seeded,
+                       skey, pad, list + warp * kOffsets);
+    __syncwarp();
+    ++run;
   }
 
-  for (int e = t; e < kCells; e += kThreads) {
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kPerLane; ++i) {
+    const int e = i * kWarps * 32 + t;
     a.up[cell0 + e] = __float2int_rz(up_s[e]);
     a.dw[cell0 + e] = __float2int_rz(dw_s[e]);
     a.banks[cell0 + e] = by_s[e];
@@ -445,6 +502,74 @@ __global__ void threefry_uniform_kernel(const uint32_t* __restrict__ keys,
   }
 }
 
+// The kernel's shared-memory attribute (and, past 8 CTAs a cluster, the
+// non-portable cluster size), set once per device: they stay set for the
+// function in that device's context, and each call costs host time on
+// the launch loop.
+template <bool kJoint, int kWarps>
+cudaError_t set_attributes() {
+  static std::atomic<unsigned long long> done{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(encode_body_kernel<kJoint, kWarps>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_bytes(kJoint, kWarps));
+  if (e == cudaSuccess && kPages / kWarps > 8)
+    e = cudaFuncSetAttribute(encode_body_kernel<kJoint, kWarps>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return e;
+}
+
+// Launch the body kernel on clusters of kPages / kWarps CTAs, one per
+// movie; or, with max_clusters != NULL, report
+// cudaOccupancyMaxActiveClusters for that configuration instead.
+template <bool kJoint, int kWarps>
+cudaError_t launch_body(const Body& a, cudaStream_t st, int* max_clusters) {
+  constexpr int kCluster = kPages / kWarps;
+  cudaError_t e = set_attributes<kJoint, kWarps>();
+  if (e != cudaSuccess) return e;
+  if (max_clusters) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kCluster);
+    cfg.blockDim = dim3(kWarps * 32);
+    cfg.dynamicSmemBytes = smem_bytes(kJoint, kWarps);
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = kCluster;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    return cudaOccupancyMaxActiveClusters(
+        max_clusters, encode_body_kernel<kJoint, kWarps>, &cfg);
+  }
+  encode_body_kernel<kJoint, kWarps>
+      <<<a.B * kCluster, kWarps * 32, smem_bytes(kJoint, kWarps), st>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kJoint>
+cudaError_t launch_cluster(const Body& a, int cluster, cudaStream_t st,
+                           int* max_clusters) {
+  switch (cluster) {
+    case 1: return launch_body<kJoint, 32>(a, st, max_clusters);
+    case 2: return launch_body<kJoint, 16>(a, st, max_clusters);
+    case 4: return launch_body<kJoint, 8>(a, st, max_clusters);
+    case 8: return launch_body<kJoint, 4>(a, st, max_clusters);
+    case 16: return launch_body<kJoint, 2>(a, st, max_clusters);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool legal_cluster(int c) {
+  return c == 1 || c == 2 || c == 4 || c == 8 || c == 16;
+}
+
 }  // namespace
 
 extern "C" {
@@ -455,43 +580,47 @@ extern "C" {
 // (n_lanes * R, C) int16 with C a power of two; keys (B, 2) uint32 or NULL;
 // nvalid (S,) int32; ops (S, B, j, k, 6) uint8.  lane_e / lane_o: the
 // bank's lanes for even / odd offsets.  joint: 0 for the default content
-// rule, 1 for joint content (C 128 or 256, table 8-byte aligned).  Returns
-// a cudaError_t: the shared memory attribute's, else the launch's.
+// rule, 1 for joint content (C 128 or 256, table 8-byte aligned).
+// cluster: CTAs per movie, 1, 2, 4, 8 or 16.  smid: NULL, or (B * cluster,)
+// int32 that receives each CTA's SM.  Returns a cudaError_t: an
+// attribute's, else the launch's.
 int iiv_encode_body(int32_t* up, int32_t* dw, int32_t* banks, int n_banks,
                     int bank, const int32_t* lanes_tgt,
                     const int32_t* bytes_tgt, int F, int frame, int n_lanes,
                     int lane_e, int lane_o, int R, const int16_t* table,
                     int C, const uint32_t* keys, const int32_t* nvalid,
                     int S, int s0, int Sc, int B, int k, int j, uint8_t* ops,
-                    int joint, void* stream) {
+                    int joint, int cluster, int32_t* smid, void* stream) {
   if (B < 0 || k < 1 || k > kPages || j < 1 || C < 1 || (C & (C - 1)) != 0 ||
       bank < 0 || bank >= n_banks || frame < 0 || frame >= F || s0 < 0 ||
-      Sc < 0 || s0 + Sc > S || R < 1 || R * n_lanes > 65536)
+      Sc < 0 || s0 + Sc > S || R < 1 || R * n_lanes > 65536 ||
+      !legal_cluster(cluster) || B > (1 << 30) / cluster)
     return cudaErrorInvalidValue;
   if (joint && ((C != 128 && C != 256) ||
                 (reinterpret_cast<uintptr_t>(table) & 7) != 0))
     return cudaErrorInvalidValue;
   if (B == 0 || Sc == 0) return cudaSuccess;
   Body a{up,     dw,      banks,   lanes_tgt, bytes_tgt, table, keys,
-         nvalid, ops,     B,       n_banks,   bank,      F,     frame,
-         n_lanes, lane_e, lane_o,  R,         C,         s0,    Sc,
-         k,      j};
+         nvalid, ops,     smid,    B,         n_banks,   bank,  F,
+         frame,  n_lanes, lane_e,  lane_o,    R,         C,     s0,
+         Sc,     k,       j};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (joint) {
-    const int bytes = kSmemBytes + kListBytes;
-    const cudaError_t attr = cudaFuncSetAttribute(
-        encode_body_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    encode_body_kernel<true><<<B, kThreads, bytes, st>>>(a);
-  } else {
-    const cudaError_t attr = cudaFuncSetAttribute(
-        encode_body_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        kSmemBytes);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    encode_body_kernel<false><<<B, kThreads, kSmemBytes, st>>>(a);
+  return static_cast<int>(
+      joint ? launch_cluster<true>(a, cluster, st, nullptr)
+            : launch_cluster<false>(a, cluster, st, nullptr));
+}
+
+// cudaOccupancyMaxActiveClusters of the body kernel (rule `joint`) on the
+// current device for each cluster size 1, 2, 4, 8, 16: out[0..4].
+int iiv_body_max_clusters(int joint, int* out) {
+  const Body a{};
+  for (int i = 0; i < 5; ++i) {
+    const cudaError_t e =
+        joint ? launch_cluster<true>(a, 1 << i, nullptr, out + i)
+              : launch_cluster<false>(a, 1 << i, nullptr, out + i);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaSuccess);
 }
 
 // The body kernel's threefry for tests: keys (B, 2) uint32, steps (S,)

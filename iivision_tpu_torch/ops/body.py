@@ -9,9 +9,13 @@ with the default content rule or the joint one (`--joint_content`).
   joint), `index_copy_` back, with the nonces of the body drawn by
   `ops/random.step_nonces`;
 - `encode_body`: one launch of csrc/body.cu on a CUDA tensor (nonces drawn
-  inside the kernel; `joint` picks the kernel's joint instantiation),
+  inside the kernel; `joint` picks the kernel's joint instantiation), a
+  thread-block cluster of `cluster` CTAs per movie (1, 2, 4, 8 or 16;
+  None: `cluster_size` on the card's `max_active_clusters`),
   `encode_body_plain` on a CPU tensor.  Each rule counts its launches:
   `encode_body.launches` and `encode_body.joint_launches`;
+- `cluster_size`: the chooser, a plain function of B, k, j, the rule and
+  the card's maximum active clusters per size;
 - `threefry_uniform`: the kernel's threefry for tests, writing
   `step_nonces`' layout (`threefry_uniform.launches` counts it);
 - `nonce_plain`: one nonce from Python integers, the per-element form of
@@ -28,6 +32,7 @@ records, padding ops already written; steps with nvalid 0 keep them.
 """
 
 import ctypes
+import functools
 import struct
 
 import torch
@@ -104,11 +109,58 @@ def encode_body_plain(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame: int,
     banks[:, bank] = st[:, :, 2].to(torch.int32)
 
 
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # CTAs per movie the kernel takes
+
+
+def cluster_size(B: int, k: int, j: int, joint: bool, max_clusters) -> int:
+    """CTAs per movie for a body of B movies at (k, j): the largest cluster
+    size whose maximum active cluster count (`max_clusters`, {size:
+    count}, as `max_active_clusters` reads them) holds all B movies in one
+    wave; 1 where none does.  The rule is the measured sweep's
+    (`chip_smoke.body_cluster_sweep` on an H100, in PERF.md): at B = 1 every
+    setting, (1, 1) and the joint rule included, ran fastest at 16, and
+    at B = 32 16 and 8 tied ahead of 4, 2 and 1, so no setting takes a
+    smaller size than the largest that fits, and the rule reads neither
+    (k, j) nor `joint`."""
+    fits = [c for c in CLUSTER_SIZES if max_clusters[c] >= B]
+    return max(fits) if fits else 1
+
+
+@functools.lru_cache(None)
+def _max_active_clusters(index: int, joint: bool) -> tuple:
+    counts = (ctypes.c_int * len(CLUSTER_SIZES))()
+    with torch.cuda.device(index):
+        _build.launch("iiv_body_max_clusters", int(joint), counts)
+    return tuple(counts)
+
+
+def max_active_clusters(device, joint: bool = False) -> dict:
+    """{cluster size: cudaOccupancyMaxActiveClusters} of the body kernel's
+    rule on a card (read once per card and rule)."""
+    return dict(zip(CLUSTER_SIZES, _max_active_clusters(
+        torch.device(device).index or 0, bool(joint))))
+
+
+@functools.lru_cache(None)
+def _chosen_size(index: int, B: int, k: int, j: int, joint: bool) -> int:
+    """`cluster_size` on card `index`, once per shape: the launch loop
+    asks for every body."""
+    return cluster_size(B, k, j, joint, max_active_clusters(index, joint))
+
+
 def encode_body(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame: int,
                 bank: int, table, keys, nvalid, s0: int, Sc: int, ops,
-                mode: VideoMode, joint: bool = False) -> None:
+                mode: VideoMode, joint: bool = False, *, cluster=None,
+                smids=None) -> None:
     """The body: one launch of the body kernel on a CUDA tensor (its joint
-    instantiation if `joint`), `encode_body_plain` on a CPU tensor."""
+    instantiation if `joint`), `encode_body_plain` on a CPU tensor.
+    cluster: CTAs per movie (one of CLUSTER_SIZES), or None for
+    `cluster_size`'s choice; any other value raises ValueError before a
+    launch, on any device.  smids: None, or an int32 (B * cluster,) tensor
+    on the card that receives the SM each CTA ran on."""
+    if cluster is not None and cluster not in CLUSTER_SIZES:
+        raise ValueError("the body kernel runs clusters of %s CTAs; got %r"
+                         % (CLUSTER_SIZES, cluster))
     if up.device.type == "cpu":
         encode_body_plain(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame,
                           bank, table, keys, nvalid, s0, Sc, ops, mode, joint)
@@ -120,6 +172,8 @@ def encode_body(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame: int,
     n_lanes = screen.spec_for_mode(mode).N_LANES
     S, _, j, k = ops.shape[:4]
     C = table.shape[1]
+    if cluster is None:
+        cluster = _chosen_size(up.device.index or 0, B, k, j, bool(joint))
     want = [(up, torch.int32, (B, nb, 32, 256)),
             (dw, torch.int32, (B, nb, 32, 256)),
             (banks, torch.int32, (B, nb, 32, 256)),
@@ -130,6 +184,8 @@ def encode_body(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame: int,
             (ops, torch.uint8, (S, B, j, k, 6))]
     if keys is not None:
         want.append((keys, torch.int32, (B, 2)))
+    if smids is not None:
+        want.append((smids, torch.int32, (B * cluster,)))
     for t, dtype, shape in want:
         if t.device != up.device or t.dtype != dtype \
                 or not t.is_contiguous() \
@@ -151,7 +207,8 @@ def encode_body(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame: int,
         le, lo, table.shape[0] // n_lanes, ctypes.c_void_p(table.data_ptr()),
         C, ctypes.c_void_p(None if keys is None else keys.data_ptr()),
         ctypes.c_void_p(nvalid.data_ptr()), S, int(s0), int(Sc), B, k, j,
-        ctypes.c_void_p(ops.data_ptr()), int(joint),
+        ctypes.c_void_p(ops.data_ptr()), int(joint), int(cluster),
+        ctypes.c_void_p(None if smids is None else smids.data_ptr()),
         ctypes.c_void_p(_build.stream_ptr(up.device)))
     if joint:
         _build.count(encode_body, "joint_launches")

@@ -1,6 +1,7 @@
 """The encoder's sequential sub-op chain (counterpart of
-iivision_tpu/encoder.py `sub_op`, under `vmap` for a batch), plain torch
-and kernel B.
+iivision_tpu/encoder.py `sub_op`, under `vmap` for a batch), in plain
+torch: what `body.encode_body_plain` runs on each step's selected pages,
+and what the body kernel (csrc/body.cu `run_slot`) is held to.
 
 After a scan step's page top-k, each of the k selected pages of each of B
 movies runs j sequential op selections on its extracted rows; each sees
@@ -21,19 +22,11 @@ the earlier sub-ops' updates.  The movies share one plan.  Layouts:
 The default rule stores the target byte at the primary offset; the joint
 rule (`--joint_content`, encoder.py:583-610 and :663-676) scores every
 content code of the page and keeps the primary's residual.  The solo
-encoder is the B = 1 call.
-
-`sub_op_chain` and `sub_op_chain_joint` update `rows` in place and write
-`out`.  A CPU tensor runs `sub_op_chain_plain`; a CUDA tensor launches
-kernel B (csrc/subop.cu, its default or joint instantiation) or raises.
-Each wrapper counts its launches in its `launches` attribute.
+encoder is the B = 1 call.  `sub_op_chain_plain` updates `rows` in place
+and writes `out`.
 """
 
-import ctypes
-
 import torch
-
-from iivision_tpu_torch import _build
 
 
 def joint_content_plain(up, dw, base, flat, C: int, off0, not_prim):
@@ -105,62 +98,3 @@ def sub_op_chain_plain(rows, sc_rows, table, nonce, pages, nvalid: int,
     rows[:, :, 0] = up
     rows[:, :, 1] = dw
     rows[:, :, 2] = by
-
-
-def _run(wrapper, joint: bool, rows, sc_rows, table, nonce, pages,
-         nvalid: int, pad_content, out) -> None:
-    if rows.device.type == "cpu":
-        sub_op_chain_plain(rows, sc_rows, table, nonce, pages, nvalid,
-                           pad_content, out, joint)
-        return
-    if rows.device.type != "cuda":
-        raise ValueError("no kernel for device %s" % rows.device)
-    B, k = rows.shape[:2]
-    j = out.shape[1]
-    C = table.shape[1]
-    want = [(rows, torch.float32, (B, k, 4, 256)),
-            (sc_rows, torch.int32, (B, k, 256)),
-            (table, torch.int16, None),
-            (pages, torch.int64, (B, k)),
-            (pad_content, torch.int32, (B,)),
-            (out, torch.uint8, (B, j, k, 6))]
-    if nonce is not None:
-        want.append((nonce, torch.float32, (B, j, k, 256)))
-    for t, dtype, shape in want:
-        if t.device != rows.device or t.dtype != dtype \
-                or not t.is_contiguous() \
-                or (shape is not None and tuple(t.shape) != shape):
-            raise ValueError(
-                "kernel B argument: want %s %s contiguous on %s, got %s %s"
-                % (dtype, shape, rows.device, t.dtype, tuple(t.shape)))
-    _build.launch(
-        "iiv_subop_chain", ctypes.c_void_p(rows.data_ptr()),
-        ctypes.c_void_p(sc_rows.data_ptr()),
-        ctypes.c_void_p(table.data_ptr()), C,
-        ctypes.c_void_p(nonce.data_ptr() if nonce is not None else None),
-        ctypes.c_void_p(pages.data_ptr()),
-        ctypes.c_void_p(pad_content.data_ptr()), B, k, j, int(nvalid),
-        int(joint), ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(_build.stream_ptr(rows.device)))
-    _build.count(wrapper, "launches")
-
-
-def sub_op_chain(rows, sc_rows, table, nonce, pages, nvalid: int,
-                 pad_content, out) -> None:
-    """Run the j sub-ops of one step on the B x k selected pages with the
-    default content rule (see the module docstring for layouts).  j is
-    out.shape[1]."""
-    _run(sub_op_chain, False, rows, sc_rows, table, nonce, pages, nvalid,
-         pad_content, out)
-
-
-def sub_op_chain_joint(rows, sc_rows, table, nonce, pages, nvalid: int,
-                       pad_content, out) -> None:
-    """`sub_op_chain` with joint content selection (kernel B's joint
-    instantiation on a card)."""
-    _run(sub_op_chain_joint, True, rows, sc_rows, table, nonce, pages,
-         nvalid, pad_content, out)
-
-
-sub_op_chain.launches = 0
-sub_op_chain_joint.launches = 0

@@ -36,6 +36,12 @@ from iivision_tpu_torch.video_mode import VideoMode
 
 PAGE = 32 * 256  # bytes of one screen bank: 32 pages of 256 offsets
 OFFSETS = 240  # offsets of a page that map to screen bytes (16 are holes)
+# int32 instructions of one threefry2x32 block as csrc/body.cu writes it:
+# the key parity (2 xors), the first key injection (2 adds), 20 mix rounds
+# of an add, a rotation (one funnel shift) and a xor (60), and five key
+# injections of 3 adds (15)
+THREEFRY_INT32_OPS = 79
+UNIFORM_INT32_OPS = 3  # a uniform's bits to float: xor, shift, or
 
 
 class Peaks(NamedTuple):
@@ -102,15 +108,25 @@ def chunk_start_cost(mode: VideoMode, batch: int, model: str = "window"):
     return float(nbytes), 0.0, float(batch * 32 * OFFSETS * per_offset)
 
 
+def nonce_int32_ops(k: int, j: int) -> int:
+    """int32 operations of one seeded step's nonce draws: threefry blocks
+    for fold_in(key, step) and fold_in(step key, 0), the 32 page uniforms,
+    and per slot and sub-op its fold_in and 256 offset uniforms (257 k j
+    blocks); each uniform's bits also take UNIFORM_INT32_OPS."""
+    blocks = 2 + 32 + 257 * k * j
+    return blocks * THREEFRY_INT32_OPS + (32 + 256 * k * j) * UNIFORM_INT32_OPS
+
+
 def body_cost(mode: VideoMode, k: int, j: int, batch: int, steps: int,
-              run: int, joint: bool = False):
+              run: int, joint: bool = False, seeded: bool = False):
     """(bytes, float32 ops, int32 ops) of one body of `steps` plan steps,
     `run` of them not padding, for `batch` movies.  Bytes per movie: up, dw
     and the bank bytes read and written, the target bytes and the bank's
     two target lanes, one int16 table read per offset per sub-op run, the
     body's records.  Joint content adds the bank's table rows (each read
     once) and, per offset and content of every sub-op run, a float32
-    subtract and compare."""
+    subtract and compare.  seeded: the nonce draws of every step run
+    (`nonce_int32_ops`) count as int32 operations."""
     C = n_contents(mode)
     nbytes = batch * (3 * 2 * PAGE * 4 + 2 * PAGE * 4
                       + run * k * j * 256 * 2 + steps * k * j * 6)
@@ -118,7 +134,8 @@ def body_cost(mode: VideoMode, k: int, j: int, batch: int, steps: int,
     if joint:
         nbytes += batch * PAGE * C * 2
         fp32 = 2.0 * batch * run * k * j * 256 * C
-    return float(nbytes), fp32, 0.0
+    int32 = float(batch * run * nonce_int32_ops(k, j)) if seeded else 0.0
+    return float(nbytes), fp32, int32
 
 
 @dataclass
@@ -135,12 +152,13 @@ class EncodeCost:
 
 def encode_cost(plan, mode: VideoMode, batch: int = 1,
                 model: str = "window", joint: bool = False,
-                shards: int = 1) -> EncodeCost:
+                shards: int = 1, seeded: bool = False) -> EncodeCost:
     """The cost of encoding `plan` for `batch` movies split into `shards`
     lockstep launch sequences (a mesh's shards; each launches once per
     chunk start and body for its movies).  A chunk start runs at every
     body whose first step recomputes; a body runs its steps' j sub-ops
-    wherever a step is not padding."""
+    wherever a step is not padding.  seeded: count the bodies' nonce
+    draws (`body_cost`)."""
     Sc = int(plan.chunk_steps)
     nv = np.asarray(plan.step_nvalid)
     runs = (nv.reshape(-1, Sc) > 0).sum(axis=1)
@@ -148,7 +166,7 @@ def encode_cost(plan, mode: VideoMode, batch: int = 1,
     total = np.asarray(chunk_start_cost(mode, batch, model)) * n_cs
     for run, count in zip(*np.unique(runs, return_counts=True)):
         total = total + count * np.asarray(body_cost(
-            mode, plan.k, plan.j, batch, Sc, int(run), joint))
+            mode, plan.k, plan.j, batch, Sc, int(run), joint, seeded))
     return EncodeCost(
         bytes=float(total[0]), fp32_ops=float(total[1]),
         int32_ops=float(total[2]), chunk_starts=n_cs * shards,
@@ -158,15 +176,15 @@ def encode_cost(plan, mode: VideoMode, batch: int = 1,
 
 def report(plan, mode: VideoMode, batch: int, seconds: float, device,
            model: str = "window", joint: bool = False,
-           shards: int = 1) -> dict:
+           shards: int = 1, seeded: bool = False) -> dict:
     """One measured encode of `seconds` against the model on `device`'s
-    peaks (see `device_peaks`).  Returns a dict with the counts, the least
-    time, the share of that bound the encode reached, the HBM share of
-    peak and `bound`: 'bytes' or 'operations' where that share passes a
-    half, else 'latency(n seq sub-ops @ x us)'; and a one-line summary
-    under "line"."""
+    peaks (see `device_peaks`); seeded: the encode drew nonces.  Returns a
+    dict with the counts, the least time, the share of that bound the
+    encode reached, the HBM share of peak and `bound`: 'bytes' or
+    'operations' where that share passes a half, else 'latency(n seq
+    sub-ops @ x us)'; and a one-line summary under "line"."""
     peaks = device_peaks(device)
-    cost = encode_cost(plan, mode, batch, model, joint, shards)
+    cost = encode_cost(plan, mode, batch, model, joint, shards, seeded)
     least_s, by = least_time(cost.bytes, cost.fp32_ops, cost.int32_ops,
                              peaks)
     share = least_s / seconds

@@ -15,7 +15,7 @@ from iivision_tpu.ops import yiq as jyiq
 from iivision_tpu.palettes import Palette as JPalette
 from iivision_tpu.video_mode import VideoMode as JVideoMode
 from iivision_tpu_torch import screen
-from iivision_tpu_torch.ops import distance, editdist, subop
+from iivision_tpu_torch.ops import body, distance, editdist
 from iivision_tpu_torch.ops import yiq as tyiq
 from iivision_tpu_torch.palettes import Palette
 from iivision_tpu_torch.video_mode import VideoMode
@@ -253,7 +253,9 @@ def test_wrappers_refuse_devices_without_a_kernel():
         editdist.pair_distance(meta, meta, sub)
     with pytest.raises(ValueError, match="no kernel"):
         editdist.dist_pairs_elementwise(meta, meta, sub)
-    rows = torch.empty((2, 4, 256), device="meta")
+    state = torch.empty((1, 2, 32, 256), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        subop.sub_op_chain(rows, None, None, None, None, 1, 0,
-                           torch.empty((1, 2, 6), device="meta"))
+        body.encode_body(state, state, state, None, None, 0, 0, None, None,
+                         None, 0, 1, torch.empty((1, 1, 1, 1, 6),
+                                                 device="meta"),
+                         VideoMode.DHGR)

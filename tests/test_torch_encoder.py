@@ -231,10 +231,10 @@ def test_offset_zero_companion_matches_host_oracle():
                         for x in (henc.up[0], henc.dw[0], henc.banks[0],
                                   tgt)])[None, None]
     out = torch.zeros((1, 1, 1, 6), dtype=torch.uint8)
-    subop.sub_op_chain(rows, torch.zeros((1, 1, 256), dtype=torch.int32),
-                       torch.zeros((1, C), dtype=torch.int16), None,
-                       torch.tensor([[page]]), 1,
-                       torch.zeros(1, dtype=torch.int32), out)
+    subop.sub_op_chain_plain(
+        rows, torch.zeros((1, 1, 256), dtype=torch.int32),
+        torch.zeros((1, C), dtype=torch.int16), None, torch.tensor([[page]]),
+        1, torch.zeros(1, dtype=torch.int32), out)
     want = henc.step(tgt, 0, 0, 1)
     assert out[0, 0].tolist() == [list(want[0])] == [[35, 5, 10, 0, 10, 10]]
     assert np.array_equal(rows[0, 0, 0].numpy(), henc.up[0, page])

@@ -143,12 +143,10 @@ def test_crafted_joint_page_matches_host_oracle(joint):
     rows[1, 0, 3] = 9.0  # the idle movie's target bytes
     sc_rows = torch.arange(256, dtype=torch.int32).expand(2, 1, 256)
     out = torch.zeros((2, 1, 1, 6), dtype=torch.uint8)
-    chain = subop.sub_op_chain_joint if joint else subop.sub_op_chain
-    chain(rows, sc_rows.contiguous(),
-          torch.as_tensor(table, dtype=torch.int16), None,
-          torch.tensor([[page], [0]]), 1, torch.tensor([0, 9],
-                                                       dtype=torch.int32),
-          out)
+    subop.sub_op_chain_plain(
+        rows, sc_rows.contiguous(), torch.as_tensor(table, dtype=torch.int16),
+        None, torch.tensor([[page], [0]]), 1,
+        torch.tensor([0, 9], dtype=torch.int32), out, joint)
     assert out[0, 0].tolist() == [list(want[0])]
     assert out[1, 0].tolist() == [[32, 9, 0, 0, 0, 0]]
     if joint:

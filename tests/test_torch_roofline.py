@@ -96,6 +96,36 @@ def test_kernel_counts_equal_the_smoke_formulas(mode, B):
                 nbytes, ops_f, 0.0)
 
 
+@pytest.mark.parametrize("mode,k,j", [(DHGR, 32, 10), (DHGR, 1, 1),
+                                      (HGR, 16, 4)])
+def test_seeded_bodies_count_their_nonce_draws(mode, k, j):
+    """seeded=True adds the threefry draws of every step run as int32
+    operations, and nothing else: per step run the step key and the page
+    key (a block each), 32 page uniforms, and per slot and sub-op its key
+    and 256 offset uniforms; a block is 79 int32 operations (2 key-parity
+    xors, 2 adds, 20 rounds of add, funnel-shift rotation and xor, 5 key
+    injections of 3 adds), a uniform one block and 3 bit operations."""
+    block = 2 + 2 + 20 * 3 + 5 * 3
+    uniform = block + 3
+    per_step = 2 * block + 32 * uniform + k * j * (block + 256 * uniform)
+    for B, Sc, run in ((1, 8, 8), (32, 8, 5), (3, 1, 1), (2, 4, 0)):
+        plain = roofline.body_cost(mode, k, j, B, Sc, run)
+        seeded = roofline.body_cost(mode, k, j, B, Sc, run, seeded=True)
+        assert seeded[:2] == plain[:2] and plain[2] == 0.0
+        assert seeded[2] == B * run * per_step
+    plan = plan_for(mode, k, j)
+    runs = int((plan.step_nvalid > 0).sum())
+    for B in (1, 32):
+        plain = roofline.encode_cost(plan, mode, B)
+        seeded = roofline.encode_cost(plan, mode, B, seeded=True)
+        assert (seeded.bytes, seeded.fp32_ops) == (plain.bytes,
+                                                   plain.fp32_ops)
+        assert seeded.int32_ops - plain.int32_ops == B * runs * per_step
+    # at k=32 j=10 a body's step draws 82,274 blocks
+    assert roofline.nonce_int32_ops(32, 10) == 82274 * block + (
+        32 + 81920) * 3
+
+
 @pytest.mark.parametrize("model,joint", [("window", False), ("yiq", False),
                                          ("window", True)])
 def test_totals_scale_with_the_batch(model, joint):
