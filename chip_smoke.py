@@ -2,6 +2,8 @@
 
     python3 chip_smoke.py            # everything below
     python3 chip_smoke.py --sweep    # the build and the body cluster sweep
+    python3 chip_smoke.py --steps    # the build and recompute_steps
+    python3 chip_smoke.py --variants # the recompute prologue's variants
 
 Builds the port's CUDA kernels from csrc/ with nvcc (one process per
 source, all at once) and checks each against its plain torch version on
@@ -13,9 +15,11 @@ the card, bit-equal:
   and mono bases: every masked value against a fixed one, random pairs,
   pairs that transpose neighbouring codes, strided and broadcast views) and its
   codes entry at L = 10 and 18;
-- the chunk-start kernel: DHGR (both banks) and HGR, window, mono and yiq
-  bases, B = 1 and 32, on the NTSC palette; the IIGS palette's window
-  bases (DHGR and HGR) and its HGR yiq stack, B = 1 and 32;
+- the chunk start, the body kernel's prologue (a body launched with the
+  cost basis against chunk_start_plain then encode_body_plain): DHGR (both
+  banks) and HGR, window, mono and yiq bases, B = 1 and 32, on the NTSC
+  palette; the IIGS palette's window bases (DHGR and HGR) and its HGR yiq
+  stack, B = 1 and 32; both content rules, at every cluster size;
 - the body kernel's threefry (B = 32 keys, steps up to 2^20, four
   sub-ops);
 - the body kernel, default and joint content, on real plan bodies with
@@ -58,8 +62,8 @@ after it:
   whole DHGR LUT (the same checks) and the first 1024 rows of each HGR
   lane (rows against plain, cells against the scalar recurrence);
 - the sub-op microbenchmark's T sweep (bench_subop.run);
-- 2 s clips in the yiq colour model (DHGR and HGR: the chunk-start
-  kernel's yiq instantiation) and the mono model (HGR); the mono clip
+- 2 s clips in the yiq colour model (DHGR and HGR: the body kernel's yiq
+  recompute) and the mono model (HGR); the mono clip
   builds its store-cost table on the card, and sampled rows of that table
   are held against the plain build;
 - the batch transcode (the bench's batch_dhgr_b32_10s_k16_j4): 32
@@ -132,7 +136,8 @@ From its second clip on, a mode's 10 s path passes the first clip's
 distance model to `Movie(dist=...)`.  Every whole-movie clip, the batch
 and the mesh batch print a `roofline[...]` line (`roofline.report` on the
 card's peaks) and fail unless its modelled chunk starts and bodies equal
-the launches counted on the path.
+the launches counted on the path (a chunk start is a body launch that
+runs the recompute in its prologue).
 
 A last, uncounted phase traces 1 s clips with torch.profiler (solo and a
 batch of 32 at k=16 j=4, solo at k=8 j=1, solo joint at k=16 j=4): device
@@ -161,12 +166,14 @@ GOLDEN_SHA = "57fdd52adf53d75101ed121d28d8a5389465c09f99d960ba6c47c20dbdb30fbc"
 
 # kernel -> (wrapper module, wrapper name, the wrapper's launch counter,
 # source, the TPU or JAX function it replaces)
+# (the chunk start is the body kernel's prologue: its counters are the body
+# wrapper's launches that recompute)
 KERNELS = {
-    "chunk_start": ("chunk_start", "chunk_start", "launches",
-                    "iivision_tpu_torch/csrc/chunk_start.cu",
+    "chunk_start": ("body", "encode_body", "recompute_launches",
+                    "iivision_tpu_torch/csrc/body.cu",
                     "iivision_tpu/encoder.py:540"),
-    "chunk_start_yiq": ("chunk_start", "chunk_start", "yiq_launches",
-                        "iivision_tpu_torch/csrc/chunk_start.cu",
+    "chunk_start_yiq": ("body", "encode_body", "yiq_recompute_launches",
+                        "iivision_tpu_torch/csrc/body.cu",
                         "iivision_tpu/encoder.py:374"),
     "encode_body": ("body", "encode_body", "launches",
                     "iivision_tpu_torch/csrc/body.cu",
@@ -223,11 +230,13 @@ def counted(path, want, fn, *args, **kw):
 
 def main(argv=()):
     """The smoke; argv ["--sweep"]: the build and the body kernel's
-    cluster sweep alone (`body_cluster_sweep`)."""
+    cluster sweep alone (`body_cluster_sweep`); ["--steps"]: the build
+    and `recompute_steps` alone; ["--variants"]: `prologue_variants`."""
     import torch
 
-    if list(argv) not in ([], ["--sweep"]):
-        print("usage: chip_smoke.py [--sweep]", file=sys.stderr)
+    if list(argv) not in ([], ["--sweep"], ["--steps"], ["--variants"]):
+        print("usage: chip_smoke.py [--sweep | --steps | --variants]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -263,6 +272,12 @@ def main(argv=()):
     if list(argv) == ["--sweep"]:
         report["encode_body"] = {}
         body_cluster_sweep(dev, report)
+        return 0
+    if list(argv) == ["--steps"]:
+        recompute_steps(dev)
+        return 0
+    if list(argv) == ["--variants"]:
+        prologue_variants(os.path.dirname(os.path.abspath(__file__)))
         return 0
     check_kernel_a(dev, report)
     check_lane_dist(dev, report)
@@ -789,76 +804,119 @@ def random_state(dev, rng, shape, hi: int):
                            device=dev)
 
 
+# the recompute's checks: (mode, model, B, bank, tag, palette name)
+CHUNK_START_CASES = (
+    ("DHGR", "window", 1, 0, "", "NTSC"),
+    ("DHGR", "window", 1, 1, "_aux", "NTSC"),
+    ("DHGR", "mono", 32, 1, "_mono_b32", "NTSC"),
+    ("DHGR", "window", 32, 0, "_b32", "NTSC"),
+    ("HGR", "window", 1, 0, "_hgr", "NTSC"),
+    ("HGR", "mono", 32, 0, "_hgr_mono_b32", "NTSC"),
+    ("DHGR", "yiq", 1, 0, "", "NTSC"), ("DHGR", "yiq", 1, 1, "_aux", "NTSC"),
+    ("DHGR", "yiq", 32, 1, "_aux_b32", "NTSC"),
+    ("DHGR", "yiq", 32, 0, "_b32", "NTSC"),
+    ("HGR", "yiq", 1, 0, "_hgr", "NTSC"),
+    ("HGR", "yiq", 32, 0, "_hgr_b32", "NTSC"),
+    # the IIGS palette: window bases, and HGR's yiq stack (the table no
+    # package ships)
+    ("DHGR", "window", 1, 1, "_iigs_aux", "IIGS"),
+    ("DHGR", "window", 32, 0, "_iigs_b32", "IIGS"),
+    ("HGR", "window", 1, 0, "_hgr_iigs", "IIGS"),
+    ("HGR", "window", 32, 0, "_hgr_iigs_b32", "IIGS"),
+    ("HGR", "yiq", 1, 0, "_hgr_iigs", "IIGS"),
+    ("HGR", "yiq", 32, 0, "_hgr_iigs_b32", "IIGS"))
+
+
 def check_chunk_start(dev, report):
-    """The chunk-start kernel against chunk_start_plain, bit-equal up and
-    dw: DHGR (both banks) and HGR, window and mono bases, B = 1 and 32, and
-    the yiq instantiation (its own entry): DHGR banks 0 and 1 and HGR, B = 1
-    and 32, all on the NTSC palette's bases; then the IIGS palette's
-    window bases (DHGR and HGR) and its HGR yiq stack, B = 1 and 32; on
-    seeded random banks (8-bit bytes), targets and state."""
+    """The body kernel's recompute prologue: a body launched with the cost
+    basis (`encode_body(..., sub=...)`) against chunk_start_plain then
+    encode_body_plain, up, dw, banks and records bit-equal, on every case
+    of CHUNK_START_CASES: DHGR (both banks) and HGR, window, mono and yiq
+    bases (the yiq recompute its own entry), B = 1 and 32, the NTSC
+    palette's bases and the IIGS palette's window bases and HGR yiq
+    stack; each case on a real plan body at k=8 j=1 (padded and partial
+    steps), seeded random 8-bit banks, targets and state, both content
+    rules, seeded and deterministic in turn, at the chooser's cluster size
+    and at each of 1, 2, 4, 8 and 16.  The body's part reads the palette's
+    window store-cost table whatever the model (it is the body kernel's
+    own check).  Timed at the chooser's size, default rule: the fused
+    launch, the same body without the recompute, and the plain pair."""
     import numpy as np
     import torch
 
     from iivision_tpu_torch import roofline
-    from iivision_tpu_torch.ops import chunk_start, distance
+    from iivision_tpu_torch.ops import body, chunk_start, distance
+    from iivision_tpu_torch.ops import random as trandom
     from iivision_tpu_torch.palettes import Palette
     from iivision_tpu_torch.video_mode import VideoMode
 
-    D, H = VideoMode.DHGR, VideoMode.HGR
-    N, I = Palette.NTSC, Palette.IIGS
     report["chunk_start"] = dict(max_abs_err=0)
     report["chunk_start_yiq"] = dict(max_abs_err=0)
-    for i, (mode, model, B, bank, tag, pal) in enumerate((
-            (D, "window", 1, 0, "", N), (D, "window", 1, 1, "_aux", N),
-            (D, "mono", 32, 1, "_mono_b32", N),
-            (D, "window", 32, 0, "_b32", N), (H, "window", 1, 0, "_hgr", N),
-            (H, "mono", 32, 0, "_hgr_mono_b32", N), (D, "yiq", 1, 0, "", N),
-            (D, "yiq", 1, 1, "_aux", N), (D, "yiq", 32, 1, "_aux_b32", N),
-            (D, "yiq", 32, 0, "_b32", N), (H, "yiq", 1, 0, "_hgr", N),
-            (H, "yiq", 32, 0, "_hgr_b32", N),
-            # the IIGS palette: window bases, and HGR's yiq stack (the
-            # table no package ships)
-            (D, "window", 1, 1, "_iigs_aux", I),
-            (D, "window", 32, 0, "_iigs_b32", I),
-            (H, "window", 1, 0, "_hgr_iigs", I),
-            (H, "window", 32, 0, "_hgr_iigs_b32", I),
-            (H, "yiq", 1, 0, "_hgr_iigs", I),
-            (H, "yiq", 32, 0, "_hgr_iigs_b32", I))):
+    k, j = 8, 1
+    for i, (mode_name, model, B, bank, tag, pal_name) in enumerate(
+            CHUNK_START_CASES):
+        mode, pal = VideoMode[mode_name], Palette[pal_name]
         entry = report["chunk_start_yiq" if model == "yiq" else "chunk_start"]
         rng = np.random.RandomState(i + 11)
+        plan, b0, state, lanes, bytes_tgt, table, nvalid, ops = body_inputs(
+            dev, mode, k, j, B, 200 + i, palette=pal)
         nb = chunk_start.n_banks(mode)
-        F, frame = 3, 1
-        banks = random_state(dev, rng, (B, nb, 32, 256), 256)
-        tgt = random_state(dev, rng, (B * F, nb, 32, 256), 256)
-        lanes = chunk_start.masked_lanes(tgt, mode).reshape(
-            (B, F, 32, 128, -1)).contiguous()
-        up0 = random_state(dev, rng, (B, nb, 32, 256), 5000)
-        dw0 = random_state(dev, rng, (B, nb, 32, 256), 900)
+        state = [random_state(dev, rng, (B, nb, 32, 256), 5000),
+                 random_state(dev, rng, (B, nb, 32, 256), 900),
+                 random_state(dev, rng, (B, nb, 32, 256), 256)]
         sub = torch.as_tensor(distance.sub_for(mode, pal, model)
                               .astype(np.int32), device=dev)
-        got = [up0.clone(), dw0.clone()]
-        want = [up0.clone(), dw0.clone()]
-        chunk_start.chunk_start(banks, lanes, frame, bank, sub, *got, mode)
-        chunk_start.chunk_start_plain(banks, lanes, frame, bank, sub, *want,
-                                      mode)
-        torch.cuda.synchronize()
-        err = max(int((g - w).abs().max()) for g, w in zip(got, want))
-        if err or not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError("chunk-start kernel (%s %s) disagrees with "
-                                 "plain" % (model, tag or "DHGR"))
-        state = [up0.clone(), dw0.clone()]
-        ms = cuda_ms(lambda: chunk_start.chunk_start(
-            banks, lanes, frame, bank, sub, *state, mode), 200)
-        plain_ms = cuda_ms(lambda: chunk_start.chunk_start_plain(
-            banks, lanes, frame, bank, sub, *state, mode), 3)
-        # bytes and int32 operations: roofline.chunk_start_cost
-        nbytes, _, int_ops = roofline.chunk_start_cost(mode, B, model)
-        bnd = bound(nbytes, int_ops=int_ops)
-        print("chunk_start %s %s %s B=%d bank=%d: max_abs_err=%d ms=%.4f "
+        Sc, frame = plan.chunk_steps, int(plan.step_frame[b0])
+        for joint in (False, True):
+            seeded = (i + joint) % 2 == 0
+            keys = trandom.key_words(range(B), dev) if seeded else None
+            rest = (lanes, bytes_tgt, frame, bank, table, keys, nvalid, b0,
+                    Sc)
+            want = [x.clone() for x in state] + [ops.clone()]
+            body.encode_body_plain(*want[:3], *rest, want[3], mode, joint,
+                                   sub=sub)
+            for c in (None,) + body.CLUSTER_SIZES:
+                got = [x.clone() for x in state] + [ops.clone()]
+                body.encode_body(*got[:3], *rest, got[3], mode, joint,
+                                 sub=sub, cluster=c)
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                    bad = [n for n, g, w in zip(("up", "dw", "banks", "ops"),
+                                                got, want)
+                           if not torch.equal(g, w)]
+                    raise AssertionError(
+                        "body with the recompute (%s %s %s B=%d bank=%d "
+                        "joint=%s, cluster %s) disagrees with plain in %s"
+                        % (mode_name, pal_name, model, B, bank, joint,
+                           c or "chosen", bad))
+        keys = trandom.key_words(range(B), dev)
+        rest = (lanes, bytes_tgt, frame, bank, table, keys, nvalid, b0, Sc)
+
+        def fresh():
+            return tuple(x.clone() for x in state) + (ops.clone(),)
+
+        ms = cuda_ms(lambda u, d, b, o: body.encode_body(
+            u, d, b, *rest, o, mode, sub=sub), 100, setup=fresh)
+        body_ms = cuda_ms(lambda u, d, b, o: body.encode_body(
+            u, d, b, *rest, o, mode), 100, setup=fresh)
+        plain_ms = cuda_ms(lambda u, d, b, o: body.encode_body_plain(
+            u, d, b, *rest, o, mode, sub=sub), 2, setup=fresh)
+        nv = plan.step_nvalid[b0:b0 + Sc]
+        # bytes and operations of the fused launch: roofline.body_cost of
+        # a recomputing body plus roofline.chunk_start_cost
+        cost = np.add(roofline.body_cost(mode, k, j, B, Sc,
+                                         int((nv > 0).sum()), False, True,
+                                         recompute=True),
+                      roofline.chunk_start_cost(mode, B, model))
+        bnd = bound(*cost)
+        print("chunk_start (body prologue) %s %s %s B=%d bank=%d: bit-equal "
+              "to plain at every cluster size, both rules; seeded k=%d j=%d "
+              "steps=%d ms=%.4f (the body without the recompute %.4f) "
               "plain_ms=%.4f bound_ms=%.5f (%s)" % (
-                  mode.name, pal.name, model, B, bank, err, ms, plain_ms,
-                  bnd["bound_ms"], bnd["bound_by"]))
+                  mode_name, pal_name, model, B, bank, k, j, Sc, ms, body_ms,
+                  plain_ms, bnd["bound_ms"], bnd["bound_by"]))
         entry["ms" + tag] = ms
+        entry["body_ms" + tag] = body_ms
         entry["plain_ms" + tag] = plain_ms
         if not tag:
             entry.update(bnd)
@@ -1193,17 +1251,22 @@ def host_us(call, n: int = 200) -> dict:
 
 def body_cluster_sweep(dev, report):
     """The body kernel's device time at every cluster size, each call on
-    the same fresh state (SWEEP), beside the chooser's size, the design's
-    issue floor at each size and the card's maximum active clusters per
-    size and rule; then where the CTAs ran, each CTA's SM recorded at
-    every size for the solo (32, 10) body and the B = 32 batch; and the
-    host's time per body launch (`host_us`).  Fails unless the solo
-    headline's body runs on more than one SM."""
+    the same fresh state (SWEEP), with and without the chunk start's
+    recompute in its prologue (the NTSC window basis), beside the plain
+    pair (chunk_start_plain then encode_body_plain), the chooser's size,
+    the design's issue floor at each size and the card's maximum active
+    clusters per size and rule; then where the CTAs ran, each CTA's SM
+    recorded at every size for the solo (32, 10) body and the B = 32
+    batch; and the host's time per body launch (`host_us`), with and
+    without the recompute.  Fails unless the solo headline's body runs on
+    more than one SM."""
+    import numpy as np
     import torch
 
     from iivision_tpu_torch import roofline
-    from iivision_tpu_torch.ops import body
+    from iivision_tpu_torch.ops import body, distance
     from iivision_tpu_torch.ops import random as trandom
+    from iivision_tpu_torch.palettes import Palette
     from iivision_tpu_torch.video_mode import VideoMode
 
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1230,24 +1293,31 @@ def body_cluster_sweep(dev, report):
                                                             **kw),
                            30 if joint else 50, setup=fresh)
 
+        sub = torch.as_tensor(distance.sub_for(mode, Palette.NTSC)
+                              .astype(np.int32), device=dev)
         ms = {c: timed(cluster=c) for c in body.CLUSTER_SIZES}
+        ms_fused = {c: timed(cluster=c, sub=sub) for c in body.CLUSTER_SIZES}
+        plain_ms = cuda_ms(lambda u, d, b: body.encode_body_plain(
+            u, d, b, *rest, sub=sub), 2, setup=fresh)
         chosen = body.cluster_size(B, k, j, joint, counts[joint])
         nv = plan.step_nvalid[b0:b0 + Sc]
         _, _, ops_i = roofline.body_cost(mode, k, j, B, Sc,
                                          int((nv > 0).sum()), joint, seeded)
         rec = dict(mode=mode_name, k=k, j=j, B=B, seeded=seeded, joint=joint,
-                   ms=ms, chosen=chosen,
+                   ms=ms, ms_fused=ms_fused, plain_pair_ms=plain_ms,
+                   chosen=chosen,
                    floor_ms={c: issue_floor_ms(ops_i, min(B * c, n_sm))
                              for c in body.CLUSTER_SIZES})
         line = "body_cluster_sweep %s k=%d j=%d B=%d seeded=%s joint=%s " \
             "steps=%d run=%d:" % (mode_name, k, j, B, seeded, joint, Sc,
                                   int((nv > 0).sum()))
         for c in body.CLUSTER_SIZES:
-            line += " c=%d ms=%.4f (issue_floor_ms=%.5f)" % (
-                c, ms[c], rec["floor_ms"][c])
+            line += " c=%d ms=%.4f recompute_ms=%.4f (issue_floor_ms=%.5f)" \
+                % (c, ms[c], ms_fused[c], rec["floor_ms"][c])
         print("%s; chosen c=%d: %.4f ms, %.3fx of c=1, within 5%% of c=1: "
-              "%s" % (line, chosen, ms[chosen], ms[chosen] / ms[1],
-                      ms[chosen] <= 1.05 * ms[1]))
+              "%s; with the recompute %.4f ms; the plain pair %.4f ms" % (
+                  line, chosen, ms[chosen], ms[chosen] / ms[1],
+                  ms[chosen] <= 1.05 * ms[1], ms_fused[chosen], plain_ms))
         args = (*fresh(), *rest)
         if (mode_name, k, j, B, seeded, joint) == SWEEP[0] or B == 32:
             for c in body.CLUSTER_SIZES:
@@ -1261,9 +1331,152 @@ def body_cluster_sweep(dev, report):
                 raise AssertionError("the solo (32, 10) body runs on one SM")
             st = fresh()
             rec["host_us"] = host_us(lambda: body.encode_body(*st, *rest))
-            print("body DHGR k=32 j=10 B=1 host us per launch: %s"
-                  % json.dumps(rec["host_us"]))
+            rec["host_us_recompute"] = host_us(
+                lambda: body.encode_body(*st, *rest, sub=sub))
+            print("body DHGR k=32 j=10 B=1 host us per launch: %s; with the "
+                  "recompute: %s" % (json.dumps(rec["host_us"]),
+                                     json.dumps(rec["host_us_recompute"])))
         sweep.append(rec)
+
+
+# (mode name, k, j, B, seeded, colour model) of the recomputing steps
+# `recompute_steps` times: the solo headline both ways, the batch, HGR's
+# 8-step body alone and batched, and yiq solo and batched
+STEPS = (("DHGR", 32, 10, 1, True, "window"),
+         ("DHGR", 32, 10, 1, False, "window"),
+         ("DHGR", 16, 4, 32, True, "window"), ("HGR", 16, 4, 1, True, "window"),
+         ("HGR", 16, 4, 32, True, "window"), ("DHGR", 16, 4, 1, True, "yiq"),
+         ("DHGR", 16, 4, 32, True, "yiq"))
+
+
+def recompute_steps(dev):
+    """One recomputing body of each STEPS setting (the sweep's seeded
+    inputs, the NTSC basis of the model, the window store-cost table), as
+    the encoder issues it: device ms per body (`cuda_ms`, fresh state every
+    call) beside the body launched without the recompute (`body_ms`), and
+    host us per body (`enqueue_us`).  In a tree whose chunk start is a
+    kernel of its own (before it became the body kernel's prologue) that
+    is the chunk-start launch and then the body launch, so this file run
+    from such a tree's root times the pair.  One JSON line a setting."""
+    import numpy as np
+    import torch
+
+    from iivision_tpu_torch.ops import body, chunk_start, distance
+    from iivision_tpu_torch.ops import random as trandom
+    from iivision_tpu_torch.palettes import Palette
+    from iivision_tpu_torch.video_mode import VideoMode
+
+    pair = hasattr(chunk_start, "chunk_start")
+    for mode_name, k, j, B, seeded, model in STEPS:
+        mode = VideoMode[mode_name]
+        plan, b0, state, lanes, bytes_tgt, table, nvalid, ops = body_inputs(
+            dev, mode, k, j, B, 77)
+        Sc = plan.chunk_steps
+        frame, bank = int(plan.step_frame[b0]), int(plan.step_bank[b0])
+        keys = trandom.key_words(range(B), dev) if seeded else None
+        sub = torch.as_tensor(distance.sub_for(mode, Palette.NTSC, model)
+                              .astype(np.int32), device=dev)
+        rest = (lanes, bytes_tgt, frame, bank, table, keys, nvalid, b0, Sc,
+                ops, mode)
+
+        def step(u, d, b):
+            if pair:
+                chunk_start.chunk_start(b, lanes, frame, bank, sub, u, d,
+                                        mode)
+                body.encode_body(u, d, b, *rest)
+            else:
+                body.encode_body(u, d, b, *rest, sub=sub)
+
+        def fresh():
+            return tuple(x.clone() for x in state)
+
+        ms = cuda_ms(step, 100, setup=fresh)
+        body_ms = cuda_ms(lambda u, d, b: body.encode_body(u, d, b, *rest),
+                          100, setup=fresh)
+        st = fresh()
+        us = enqueue_us(lambda: step(*st))
+        print(json.dumps(dict(
+            step="%s k=%d j=%d B=%d seeded=%s %s" % (
+                mode_name, k, j, B, seeded, model),
+            launches=2 if pair else 1, ms=ms, body_ms=body_ms, host_us=us)))
+
+
+# Variants of the recompute prologue in csrc/body.cu, each (this tree's
+# text, the variant's): the design choices `prologue_variants` times
+PROLOGUE_VARIANTS = {
+    # each code from the dots by lane_code, not from the code before it
+    "lane_code": ("""      diag_dp_step(d_m2[x], d[x], ap[x], bp[x],
+                   lane_code_next(ap[x], xa[x], k, phase),
+                   lane_code_next(bp[x], xb[x], k, phase), sub);""",
+                  """      diag_dp_step(d_m2[x], d[x], ap[x], bp[x],
+                   lane_code(da[x], k, phase), lane_code(db[x], k, phase),
+                   sub);"""),
+    "chains2": ("constexpr int kChains = 4;", "constexpr int kChains = 2;"),
+    "chains8": ("constexpr int kChains = 4;", "constexpr int kChains = 8;"),
+    # the DP left out (wrong distances): what the rest of the prologue
+    # costs
+    "no_dp": ("        diag_dp_chains(da, db, phase, dhgr ? 10 : 18, sub_s, "
+              "d + i0);",
+              "        for (int x = 0; x < kChains; ++x)\n"
+              "          d[i0 + x] = sub_s[(da[x] ^ db[x]) & 255];"),
+    # yiq's windows unrolled: every load of a thread in flight at once
+    "yiq_unrolled": ("""  for (int w = 0; w < L; ++w) {
+#pragma unroll
+    for (int x = 0; x < N; ++x)""", """#pragma unroll 15
+  for (int w = 0; w < L; ++w) {
+#pragma unroll
+    for (int x = 0; x < N; ++x)"""),
+}
+
+
+def prologue_variants(root):
+    """Time the recompute prologue's design choices: this tree and each of
+    PROLOGUE_VARIANTS as a copy of the package and this file in a
+    temporary directory with csrc/body.cu patched, all built at once,
+    then `--steps` run in each copy in turn, twice.  Prints each copy's
+    ptxas register and spill lines and its `--steps` lines."""
+    import shutil
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {}
+        for name in ("this tree",) + tuple(PROLOGUE_VARIANTS):
+            d = os.path.join(tmp, name.replace(" ", "_"))
+            shutil.copytree(os.path.join(root, "iivision_tpu_torch"),
+                            os.path.join(d, "iivision_tpu_torch"),
+                            ignore=shutil.ignore_patterns("_build",
+                                                          "__pycache__"))
+            shutil.copy(os.path.join(root, "chip_smoke.py"), d)
+            # the shipped tables, read by path
+            os.makedirs(os.path.join(d, "iivision_tpu"))
+            os.symlink(os.path.join(root, "iivision_tpu", "data"),
+                       os.path.join(d, "iivision_tpu", "data"))
+            if name in PROLOGUE_VARIANTS:
+                old, new = PROLOGUE_VARIANTS[name]
+                src = os.path.join(d, "iivision_tpu_torch", "csrc", "body.cu")
+                with open(src) as f:
+                    text = f.read()
+                if text.count(old) != 1:
+                    raise AssertionError("variant %s: its text is not in "
+                                         "body.cu once" % name)
+                with open(src, "w") as f:
+                    f.write(text.replace(old, new))
+            dirs[name] = d
+        build = ("import sys; sys.path.insert(0, '.'); "
+                 "from iivision_tpu_torch import _build; _build.build()")
+        procs = [subprocess.Popen([sys.executable, "-c", build], cwd=d)
+                 for d in dirs.values()]
+        if any(p.wait() for p in procs):
+            raise AssertionError("a prologue variant failed to build")
+        for rnd in range(2):
+            for name, d in dirs.items():
+                out = subprocess.run(
+                    [sys.executable, "chip_smoke.py", "--steps"], cwd=d,
+                    capture_output=True, text=True, check=True).stdout
+                for line in out.splitlines():
+                    if line.startswith("{") or "registers" in line \
+                            or "spill" in line:
+                        print("prologue variant %s, round %d: %s"
+                              % (name, rnd, line.strip()), flush=True)
 
 
 # Dependent cycles of one kernel C sub-op, from its instruction sequence,
@@ -1353,7 +1566,7 @@ def check_kernel_c(dev, report):
 
 def check_golden(dev):
     """The JAX package's pinned stream (tests/test_stream.py), encoded on
-    the card through the chunk-start and body kernels."""
+    the card through the body kernel, its chunk starts in its prologue."""
     import numpy as np
 
     from iivision_tpu_torch import encoder
@@ -1911,7 +2124,7 @@ def run_quality_matrix(dev):
 
 def enc_launches():
     """(chunk starts, bodies) counted so far, every instantiation of
-    each."""
+    each: a chunk start is a body launch that recomputes."""
     return (launch_count("chunk_start") + launch_count("chunk_start_yiq"),
             launch_count("encode_body") + launch_count("encode_body_joint"))
 
@@ -1965,9 +2178,9 @@ def print_transcode(what, m, stats, peak, launched):
 def run_long_stream(dev, dists, seconds: int = 60):
     """A 60 s 280x192 clip (900 encoded frames, a 44.1 kHz tone) at k=8
     j=1 through Movie, left to its own choice: it must take the streaming
-    encoder, launch the chunk-start and body kernels, play on the player
-    VM to the encoder's final screens, and equal the whole-movie encode of
-    the same clip with the same distance model.  Run whole, streaming,
+    encoder, launch the body kernel with and without the recompute, play
+    on the player VM to the encoder's final screens, and equal the
+    whole-movie encode of the same clip with the same distance model.  Run whole, streaming,
     streaming, whole; every run prints its line."""
     import numpy as np
 
@@ -2848,8 +3061,8 @@ def run_host_oracle(dev, mode_name: str, palette_name: str, k: int, j: int,
 def bench_paths():
     """(configuration, kernels it must launch) of every configuration of
     `python -m iivision_tpu_torch.bench`, in its order: the encodes launch
-    the chunk-start and body kernels, the yiq one the chunk start's yiq
-    instantiation; those scored by replay launch the lane distance, the
+    the body kernel with the chunk start in its prologue, the yiq one its
+    yiq recompute; those scored by replay launch the lane distance, the
     LUT builds kernel A's tile."""
     from iivision_tpu_torch import bench
 

@@ -27,9 +27,10 @@ What runs through `jax` there is written here in torch:
 - `ops.editdist`: all-pairs edit-distance tiles (kernel A, CUDA);
 - `ops.random`: threefry2x32 nonces, bit-equal to `jax.random`;
 - `ops.chunk_start`: the encoder's chunk-start diff and priority update
-  (CUDA);
-- `ops.body`: one chunk body of the encoder - page top-k, nonces and the
-  sub-op chain - in one launch (CUDA, a thread-block cluster per movie);
+  in plain torch (on a card the body kernel's prologue);
+- `ops.body`: one chunk body of the encoder - the chunk start's recompute,
+  page top-k, nonces and the sub-op chain - in one launch (CUDA, a
+  thread-block cluster per movie);
 - `ops.subop`: the per-step sub-op chain, default and joint content, in
   plain torch (what the body's plain version runs);
 - `ops.subop_bench`: the sub-op microbenchmark's math (kernel C, CUDA);

@@ -45,10 +45,9 @@ SIGNATURES = {
     "iiv_dist_pairs": [_P, _P, _L, _I, _P, _P, _P],
     "iiv_lane_dist": [_P, _L, _L, _P, _L, _L, _L, _L, _I, _I, _P, _P, _P],
     "iiv_subop_bench": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
-    "iiv_chunk_start": [_P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P],
     "iiv_encode_body": [_P, _P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _I,
-                        _P, _P],
+                        _P, _P, _I, _P],
     "iiv_body_max_clusters": [_I, _P],
     "iiv_threefry_uniform": [_P, _I, _P, _I, _I, _I, _P, _P, _P],
 }

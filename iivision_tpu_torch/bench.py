@@ -15,8 +15,8 @@ quartiles, min and max, with its unit.  On a card one more rep runs under
 torch.profiler (`trace`: the device's busy share, the top kernels by device
 time with their launches, the longest idle gaps), the encode
 configurations carry `roofline.report`'s line for their median encode, and
-the chunk starts and bodies every rep launched must equal the roofline
-model's.  Each record holds its checks (streams through the player VM,
+the chunk starts (body launches that recompute) and bodies every rep
+launched must equal the roofline model's.  Each record holds its checks (streams through the player VM,
 byte equalities, table rows against the plain build); a check that fails
 or a configuration that raises makes the run exit non-zero once the other
 configurations have run.
@@ -50,7 +50,7 @@ from iivision_tpu_torch import audio as audio_mod
 from iivision_tpu_torch import encoder, require_device, roofline
 from iivision_tpu_torch import movie as movie_mod
 from iivision_tpu_torch.movie import Movie, get_distance
-from iivision_tpu_torch.ops import body, chunk_start, dither, editdist, resize
+from iivision_tpu_torch.ops import body, dither, editdist, resize
 from iivision_tpu_torch.palettes import Palette
 from iivision_tpu_torch.parallel import mesh
 from iivision_tpu_torch.screen import spec_for_mode
@@ -179,9 +179,11 @@ def sync(dev: torch.device) -> None:
 
 def encode_launches():
     """(chunk starts, bodies) launched so far, every instantiation of
-    each (the kernel wrappers' counters)."""
-    cs, bd = chunk_start.chunk_start, body.encode_body
-    return (cs.launches + cs.yiq_launches, bd.launches + bd.joint_launches)
+    each (the body wrapper's counters: a chunk start is a body launch that
+    runs the recompute in its prologue)."""
+    bd = body.encode_body
+    return (bd.recompute_launches + bd.yiq_recompute_launches,
+            bd.launches + bd.joint_launches)
 
 
 def vm_checks(data: bytes, n_ops: int, levels=None, finals=()) -> dict:

@@ -1,12 +1,16 @@
-// The encoder's chunk body in one launch for B movies, for Hopper (sm_90a).
+// The encoder's chunk body in one launch for B movies, for Hopper (sm_90a),
+// with the chunk start's recompute as its prologue.
 //
-// Replaces the JAX encoder's body scan: `step_body` and `sub_op` under it
-// (iivision_tpu/encoder.py:567-759, XLA in the JAX package, not Pallas),
+// Replaces the JAX encoder's `chunk_body` (iivision_tpu/encoder.py:482):
+// `do_recompute` with `diff_bank` (:540-548, :351-398) under
+// lax.cond(recompute, ...) (:553), then the step scan, `step_body` and
+// `sub_op` under it (:567-759), all XLA in the JAX package, not Pallas,
 // for DHGR and HGR and every colour model, with either content rule: the
 // default (the target byte at the primary offset) and the joint rule of
 // `--joint_content` (encoder.py:583-610, :663-676), one instantiation each
 // (template <bool kJoint>, times the five cluster sizes).  One launch runs
-// steps s0 .. s0+Sc-1 of the plan.  Each step:
+// the recompute, if asked for, then steps s0 .. s0+Sc-1 of the plan.  Each
+// step:
 //   1. page scores: max(up) over each page's 256 offsets, times 256, plus
 //      255 x the page's nonce (two roundings, as the two torch ops do);
 //   2. the k best pages, stably: rank_p = #{q: s_q > s_p} + #{q < p:
@@ -17,6 +21,30 @@
 //      against dw - cost, gated updates, one record per sub-op.
 // A step whose plan nvalid is 0 is skipped whole: no state change, no nonce
 // draw; its records stay the padding op the caller wrote.
+//
+// The recompute (a uniform argument: 0 none, 1 a (16, 16) cost basis, the
+// window and mono models, 2 the yiq model's (n_lanes, L, 128, 128) window
+// costs): for the active bank of each movie, per page offset o,
+//   1. the modelled screen's masked lane bank_lanes(bank)[o & 1] at column
+//      c = o >> 1, from the bank bytes around it (DHGR: the aux and main
+//      bytes of columns 2c-1 .. 2c+2 of the page row; HGR: the main
+//      bytes), header and footer zero at the page edges;
+//   2. the target lane from lanes_tgt[movie, frame];
+//   3. the distance d: under a (16, 16) basis the diagonal
+//      Damerau-Levenshtein distance of the two lanes' colour codes
+//      (diag_dp.cuh; each code is the 4-dot window at dot i rotated by the
+//      NTSC phase, lane_codes.cuh, which kernel A's lane-distance entry
+//      shares; HGR lanes expand to 21 dots first); under yiq the sum over
+//      the 7-dot windows w_j = (dots >> j) & 0x7F, j < 7 (DHGR) or 15
+//      (HGR), of sub[lane, j, wa_j, wb_j], read through L2 (1.8-1.9 MB);
+//      zero at the screen holes (o & 127 >= 120);
+//   4. up = (d == 0 ? 0 : up) + d and dw = d, in int32 (ops/chunk_start.py
+//      chunk_start_plain, bit for bit), converted straight into the CTA's
+//      shared-memory state: up and dw are not written to HBM between the
+//      recompute and the steps.
+// The JAX package never split the two; the port ran the recompute as a
+// kernel of its own until the body became a cluster, then made it the
+// body's prologue, computed where its result is consumed.
 //
 // The content byte.  The default rule reads the target byte at the primary
 // offset.  The joint rule scores every content c of the page:
@@ -97,6 +125,49 @@
 // the eight loads in flight and the other slots' warps hide (on an H100,
 // eight in flight ran a DHGR k=16 j=4 body 22% faster than four).
 //
+// The recompute on this card.  As a launch of its own (grid (32, B), a
+// thread per offset) it was latency-bound: 0.0032 ms for one movie whose
+// bytes take 0.15 us, and a second launch a step for the host.  As the
+// prologue (numbers: one H100 80GB HBM3 at 700 W; `python3 chip_smoke.py
+// --variants` times this file against each variant in PROLOGUE_VARIANTS,
+// in prologue us = a recomputing body less the same body without it):
+//   - cluster residency: it runs on the SMs the body's cluster holds (16
+//     at B = 1), so there is no launch and no drain between two kernels,
+//     and up and dw go from registers into shared memory, never through
+//     HBM;
+//   - staging: both banks' page rows as uint8 and the (16, 16) basis, in
+//     the space of up_s and dw_s, which the recompute fills last, so a
+//     CTA asks for no more dynamic shared memory.  The rows come in with
+//     plain loads, all in flight at once (they are int32 in HBM and bytes
+//     here); a 1-D bulk async copy was not tried;
+//   - a thread owns kPerLane cells, all on one lane (the offsets' parity
+//     is t's), and runs their DP chains kChains side by side: four and
+//     eight chains measured alike, two 0.3-0.6 us slower.  Past four the
+//     DP is bound by instruction issue on the two warps an SM holds at
+//     c = 16;
+//   - each colour code follows from the one before it (lane_code_next,
+//     four operations where lane_code takes about ten): 3.0 us against
+//     3.8 for a DHGR (32, 10) body, 3.0 against 4.4 at (16, 4) B = 32, 4.0
+//     against 9.4 on HGR at B = 32;
+//   - no load waits behind a branch: each path's loads sit in an unrolled
+//     loop of its own, the basis's beside the rows'.  One loop with the
+//     uniform `if (recompute)` inside had cost the body without the
+//     recompute 3.5 us (`--sweep`, on that first form);
+//   - yiq's window sums stay a loop over the windows with the thread's 8
+//     loads in flight: unrolling it saved 2.5 us of sums at B = 32 but
+//     took 254 registers and made the B = 32 body 16% slower.  The sums
+//     are bound by L2 gathers (1.8 M random words at B = 32);
+//   - tensor cores do not apply: an integer DP of dependent table lookups
+//     and a gather-sum hold no product for wgmma.
+// The prologue costs 2.9-3.3 us at DHGR (32, 10) B = 1 and (16, 4) B = 32,
+// 3.9-4.3 us on HGR (18-step chains and the dot expansion), 4.3 us for yiq
+// at B = 1 and 14.2-15.0 us at B = 32; 1.6-1.9 us of it at B = 1 is not
+// the DP (the staging's round trip, the lane assembly, two block
+// barriers).  Registers: 112-122 a thread at c >= 2 (the body alone took
+// 80 and 96-100), no spill; c = 1 keeps 64 and spills 12 bytes (16
+// joint).  With them the card holds 62 clusters at c = 4 and 8, not 92;
+// the chooser's c = 16 up to 58 movies is unchanged.
+//
 // iiv_threefry_uniform exposes the same threefry to tests: it writes the
 // nonces of given keys and steps in ops/random.step_nonces' layout.
 
@@ -107,6 +178,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "diag_dp.cuh"
+#include "lane_codes.cuh"
 #include "warp_argmax.cuh"
 
 namespace cg = cooperative_groups;
@@ -123,6 +196,9 @@ constexpr int kPageBytes = kOffsets * (4 + 4 + 2 + 1 + 1);
 // as an int2, 256 entries
 constexpr int kListBytes = kOffsets * (4 + 4);
 constexpr int kJointBatch = 8;  // table loads in flight per lane
+// the recompute's independent chains a thread runs side by side (of its
+// kPerLane cells)
+constexpr int kChains = 4;
 
 // a CTA's dynamic shared memory for `pages` pages
 constexpr int smem_bytes(bool joint, int pages) {
@@ -198,6 +274,100 @@ __device__ __forceinline__ void unpack4(uint2 w, float* c) {
   c[3] = __uint_as_float(__byte_perm(w.y, 0x4B000000u, 0x7632u));
 }
 
+// DHGR masked lane `lane` at column c from one page's staged main / aux
+// rows (screen.py masked_lane_at).
+__device__ __forceinline__ int dhgr_lane_at(const uint8_t* main_r,
+                                            const uint8_t* aux_r, int lane,
+                                            int c) {
+  const int c2 = 2 * c;
+  const int a0 = aux_r[c2] & 0x7F, m0 = main_r[c2] & 0x7F;
+  const int a1 = aux_r[c2 + 1] & 0x7F, m1 = main_r[c2 + 1] & 0x7F;
+  switch (lane) {
+    case 0: {
+      const int hdr = c > 0 ? (main_r[c2 - 1] & 0x7F) >> 4 : 0;
+      return hdr | (a0 << 3) | ((m0 & 0b111) << 10);
+    }
+    case 1:
+      return (a0 >> 4) | (m0 << 3) | ((a1 & 0b111) << 10);
+    case 2:
+      return (m0 >> 4) | (a1 << 3) | ((m1 & 0b111) << 10);
+    default: {
+      const int ftr = c < 127 ? aux_r[c2 + 2] & 0b111 : 0;
+      return (a1 >> 4) | (m1 << 3) | (ftr << 10);
+    }
+  }
+}
+
+// HGR masked lane `lane` at column c from one page's staged main row.
+__device__ __forceinline__ int hgr_lane_at(const uint8_t* main_r, int lane,
+                                           int c) {
+  const int c2 = 2 * c;
+  const int even = main_r[c2], odd = main_r[c2 + 1];
+  const int prev_odd = c > 0 ? main_r[c2 - 1] : 0;
+  const int next_even = c < 127 ? main_r[c2 + 2] : 0;
+  const int hdr = ((prev_odd >> 5) & 0b011) | ((prev_odd >> 5) & 0b100);
+  const int ftr = ((next_even >> 7) & 1) | ((next_even & 0b11) << 1);
+  const int packed = hdr | (even << 3) | ((odd & 0x80) << 4) |
+                     ((odd & 0x7F) << 12) | (ftr << 19);
+  return (packed >> (8 * lane)) & 0x3FFF;
+}
+
+// The dots of cell e's two lanes (lane ln): the modelled screen's, from
+// its page row among the staged rows (main at rows, aux kCellsCta bytes
+// on), and the target lane value tgt's.
+__device__ __forceinline__ void cell_dots(const uint8_t* rows, int cells,
+                                          int e, int ln, int tgt, bool dhgr,
+                                          int& da, int& db) {
+  const uint8_t* main_r = rows + (e & ~(kOffsets - 1));
+  const int c = (e & (kOffsets - 1)) >> 1;
+  const int cur = dhgr ? dhgr_lane_at(main_r, main_r + cells, ln, c)
+                       : hgr_lane_at(main_r, ln, c);
+  da = dhgr ? cur : hgr_to_dots(cur, ln);
+  db = dhgr ? tgt : hgr_to_dots(tgt, ln);
+}
+
+// kChains diagonal DPs side by side over L colour codes of one lane (one
+// NTSC phase): each code follows from the one before it when the step
+// needs it (lane_code_next), so no code array sits in registers, and the
+// chains' cost lookups sub[a * 16 + b] in shared memory overlap.
+__device__ __forceinline__ void diag_dp_chains(const int* da, const int* db,
+                                               int phase, int L,
+                                               const int* sub, int* d) {
+  int ap[kChains], bp[kChains], d_m2[kChains], xa[kChains], xb[kChains];
+#pragma unroll
+  for (int x = 0; x < kChains; ++x) {
+    ap[x] = lane_code(da[x], 0, phase);
+    bp[x] = lane_code(db[x], 0, phase);
+    xa[x] = (da[x] ^ (da[x] >> 4)) << phase;
+    xb[x] = (db[x] ^ (db[x] >> 4)) << phase;
+    d_m2[x] = 0;
+    d[x] = sub[ap[x] * 16 + bp[x]];
+  }
+  for (int k = 1; k < L; ++k) {
+#pragma unroll
+    for (int x = 0; x < kChains; ++x)
+      diag_dp_step(d_m2[x], d[x], ap[x], bp[x],
+                   lane_code_next(ap[x], xa[x], k, phase),
+                   lane_code_next(bp[x], xb[x], k, phase), sub);
+  }
+}
+
+// N yiq window sums side by side, d = sum_w sub_l[w, wa_w, wb_w] over one
+// lane's (L, 128, 128) costs: the N loads of a window independent.
+template <int N>
+__device__ __forceinline__ void window_sums(const int* da, const int* db,
+                                            const int32_t* sub_l, int L,
+                                            int* d) {
+#pragma unroll
+  for (int x = 0; x < N; ++x) d[x] = 0;
+  for (int w = 0; w < L; ++w) {
+#pragma unroll
+    for (int x = 0; x < N; ++x)
+      d[x] += __ldg(sub_l + ((w * 128 + ((da[x] >> w) & 0x7F)) << 7) +
+                    ((db[x] >> w) & 0x7F));
+  }
+}
+
 struct Body {
   int32_t* up;  // (B, n_banks, 32, 256) int32 state, updated at `bank`
   int32_t* dw;
@@ -209,8 +379,9 @@ struct Body {
   const int32_t* nvalid;     // (S,) the plan's step_nvalid
   uint8_t* ops;              // (S, B, j, k, 6) records
   int32_t* smid;             // (B * c,) each CTA's SM, or NULL
+  const int32_t* sub;        // the recompute's costs, or NULL
   int B, n_banks, bank, F, frame, n_lanes, lane_e, lane_o, R, C, s0, Sc, k,
-      j;
+      j, recompute;
 };
 
 // The joint content of one sub-op on page P (the header's rule), computed
@@ -412,21 +583,103 @@ __global__ void __cluster_dims__(kPages / kWarps, 1, 1)
   const size_t tb0 = (((size_t)movie * a.F + a.frame) * 2 + a.bank) * kCells;
   const size_t ln0 = ((size_t)movie * a.F + a.frame) * kPages * 128 *
                      a.n_lanes;
-  // kPerLane cells a thread at every cluster size, unrolled so that their
-  // loads are in flight together
+  // kPerLane cells a thread at every cluster size, e = i * 32 kWarps + t,
+  // unrolled so that their loads are in flight together; each path has a
+  // loop of its own, so that no load waits behind a branch.  A thread's
+  // cells share the parity of t, and so the lane.
+  const int ln = (t & 1) ? a.lane_o : a.lane_e;
+  if (!a.recompute) {
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
-    const int e = i * kWarps * 32 + t;
-    up_s[e] = __int2float_rn(a.up[cell0 + e]);
-    dw_s[e] = __int2float_rn(a.dw[cell0 + e]);
-    by_s[e] = static_cast<uint8_t>(a.banks[cell0 + e]);
-    const int g = q * kCellsCta + e;  // the cell in the bank
-    tb_s[e] = static_cast<uint8_t>(a.bytes_tgt[tb0 + g]);
-    const int o = g & (kOffsets - 1);
-    const int ln = (o & 1) ? a.lane_o : a.lane_e;
-    const int tgt = a.lanes_tgt[ln0 + ((size_t)(g >> 8) * 128 + (o >> 1)) *
-                                          a.n_lanes + ln];
-    row_s[e] = static_cast<uint16_t>(ln * a.R + tgt);
+    for (int i = 0; i < kPerLane; ++i) {
+      const int e = i * kWarps * 32 + t;
+      up_s[e] = __int2float_rn(a.up[cell0 + e]);
+      dw_s[e] = __int2float_rn(a.dw[cell0 + e]);
+      by_s[e] = static_cast<uint8_t>(a.banks[cell0 + e]);
+      const int g = q * kCellsCta + e;  // the cell in the bank
+      tb_s[e] = static_cast<uint8_t>(a.bytes_tgt[tb0 + g]);
+      const int tgt = a.lanes_tgt[ln0 + ((size_t)(g >> 8) * 128 +
+                                         ((g & (kOffsets - 1)) >> 1)) *
+                                            a.n_lanes + ln];
+      row_s[e] = static_cast<uint16_t>(ln * a.R + tgt);
+    }
+  } else {
+    // The recompute.  Its staging lives in the space of up_s and dw_s,
+    // which it fills last: both banks' page rows as uint8 (main, then aux)
+    // and the (16, 16) basis.  The targets and the old up stay in
+    // registers until the new state is known.
+    uint8_t* const rows_s = reinterpret_cast<uint8_t*>(up_s);
+    int* const sub_s = reinterpret_cast<int*>(dw_s);
+    const bool dhgr = a.n_banks == 2;
+    // the other bank's row (HGR has none: its own again, into the unused
+    // slot, so that the loop holds no branch)
+    const int ob = dhgr ? 1 - a.bank : 1;
+    const size_t other =
+        dhgr ? ((size_t)movie * 2 + ob) * kCells + (size_t)q * kCellsCta
+             : cell0;
+    // the basis: its loads issued first, beside the rows', with no branch
+    // (the yiq costs hold far more than 256 words; those are not used)
+    constexpr int kSubLoads = (256 + kWarps * 32 - 1) / (kWarps * 32);
+    int sub_r[kSubLoads];
+#pragma unroll
+    for (int i = 0; i < kSubLoads; ++i) {
+      const int x = i * kWarps * 32 + t;
+      sub_r[i] = x < 256 ? a.sub[x] : 0;
+    }
+    int tgt[kPerLane], up_n[kPerLane];
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const int e = i * kWarps * 32 + t;
+      const uint8_t by = static_cast<uint8_t>(a.banks[cell0 + e]);
+      by_s[e] = by;
+      rows_s[a.bank * kCellsCta + e] = by;
+      rows_s[ob * kCellsCta + e] = static_cast<uint8_t>(a.banks[other + e]);
+      up_n[i] = a.up[cell0 + e];
+      const int g = q * kCellsCta + e;
+      tb_s[e] = static_cast<uint8_t>(a.bytes_tgt[tb0 + g]);
+      tgt[i] = a.lanes_tgt[ln0 + ((size_t)(g >> 8) * 128 +
+                                  ((g & (kOffsets - 1)) >> 1)) *
+                                     a.n_lanes + ln];
+      row_s[e] = static_cast<uint16_t>(ln * a.R + tgt[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < kSubLoads; ++i) {
+      const int x = i * kWarps * 32 + t;
+      if (x < 256) sub_s[x] = sub_r[i];
+    }
+    __syncthreads();  // the rows and the basis are staged
+
+    const int phase = lane_phase(dhgr, ln);
+    int d[kPerLane];
+    if (a.recompute == 2) {
+      // yiq: every cell's window loads in flight together, through L2
+      int da[kPerLane], db[kPerLane];
+#pragma unroll
+      for (int i = 0; i < kPerLane; ++i)
+        cell_dots(rows_s, kCellsCta, i * kWarps * 32 + t, ln, tgt[i], dhgr,
+                  da[i], db[i]);
+      const int L = dhgr ? 7 : 15;
+      window_sums<kPerLane>(da, db, a.sub + (size_t)ln * L * 128 * 128, L,
+                            d);
+    } else {
+#pragma unroll
+      for (int i0 = 0; i0 < kPerLane; i0 += kChains) {
+        int da[kChains], db[kChains];
+#pragma unroll
+        for (int x = 0; x < kChains; ++x)
+          cell_dots(rows_s, kCellsCta, (i0 + x) * kWarps * 32 + t, ln,
+                    tgt[i0 + x], dhgr, da[x], db[x]);
+        diag_dp_chains(da, db, phase, dhgr ? 10 : 18, sub_s, d + i0);
+      }
+    }
+    __syncthreads();  // every thread is done with the staging
+#pragma unroll
+    for (int i = 0; i < kPerLane; ++i) {
+      const int e = i * kWarps * 32 + t;
+      // a screen hole: no screen byte at this offset
+      const int dd = (e & 127) >= 120 ? 0 : d[i];
+      up_s[e] = __int2float_rn((dd == 0 ? 0 : up_n[i]) + dd);
+      dw_s[e] = __int2float_rn(dd);
+    }
   }
   if (a.smid != nullptr && t == 0) a.smid[blockIdx.x] = sm_id();
   const bool seeded = a.keys != nullptr;
@@ -582,15 +835,19 @@ extern "C" {
 // bank's lanes for even / odd offsets.  joint: 0 for the default content
 // rule, 1 for joint content (C 128 or 256, table 8-byte aligned).
 // cluster: CTAs per movie, 1, 2, 4, 8 or 16.  smid: NULL, or (B * cluster,)
-// int32 that receives each CTA's SM.  Returns a cudaError_t: an
-// attribute's, else the launch's.
+// int32 that receives each CTA's SM.  recompute: 0 none; 1 the chunk
+// start under the (16, 16) int32 costs `sub`; 2 under the yiq model's
+// (n_lanes, L, 128, 128) int32 window costs `sub` (L = 7 for DHGR, 15 for
+// HGR); a recompute takes DHGR's (n_banks, n_lanes) = (2, 4) or HGR's
+// (1, 2).  Returns a cudaError_t: an attribute's, else the launch's.
 int iiv_encode_body(int32_t* up, int32_t* dw, int32_t* banks, int n_banks,
                     int bank, const int32_t* lanes_tgt,
                     const int32_t* bytes_tgt, int F, int frame, int n_lanes,
                     int lane_e, int lane_o, int R, const int16_t* table,
                     int C, const uint32_t* keys, const int32_t* nvalid,
                     int S, int s0, int Sc, int B, int k, int j, uint8_t* ops,
-                    int joint, int cluster, int32_t* smid, void* stream) {
+                    int joint, int cluster, int32_t* smid,
+                    const int32_t* sub, int recompute, void* stream) {
   if (B < 0 || k < 1 || k > kPages || j < 1 || C < 1 || (C & (C - 1)) != 0 ||
       bank < 0 || bank >= n_banks || frame < 0 || frame >= F || s0 < 0 ||
       Sc < 0 || s0 + Sc > S || R < 1 || R * n_lanes > 65536 ||
@@ -599,11 +856,15 @@ int iiv_encode_body(int32_t* up, int32_t* dw, int32_t* banks, int n_banks,
   if (joint && ((C != 128 && C != 256) ||
                 (reinterpret_cast<uintptr_t>(table) & 7) != 0))
     return cudaErrorInvalidValue;
-  if (B == 0 || Sc == 0) return cudaSuccess;
+  if (recompute < 0 || recompute > 2 || (recompute && sub == nullptr) ||
+      (recompute && !((n_banks == 2 && n_lanes == 4) ||
+                      (n_banks == 1 && n_lanes == 2))))
+    return cudaErrorInvalidValue;
+  if (B == 0 || (Sc == 0 && !recompute)) return cudaSuccess;
   Body a{up,     dw,      banks,   lanes_tgt, bytes_tgt, table, keys,
-         nvalid, ops,     smid,    B,         n_banks,   bank,  F,
-         frame,  n_lanes, lane_e,  lane_o,    R,         C,     s0,
-         Sc,     k,       j};
+         nvalid, ops,     smid,    sub,       B,         n_banks, bank,
+         F,      frame,   n_lanes, lane_e,    lane_o,    R,     C,
+         s0,     Sc,      k,       j,         recompute};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       joint ? launch_cluster<true>(a, cluster, st, nullptr)

@@ -1,5 +1,5 @@
 // The diagonal weighted Damerau-Levenshtein recurrence shared by kernel A
-// (editdist.cu) and the chunk-start kernel (chunk_start.cu).
+// (editdist.cu) and the body kernel's recompute prologue (body.cu).
 //
 // For strings a, b of equal length L over 16 colour codes, with a symmetric
 // 16x16 integer cost matrix C:

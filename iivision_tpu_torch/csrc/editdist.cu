@@ -62,7 +62,7 @@
 //   function needs 12 bytes per pair (two lane values in, one distance
 //   out), so the kernel reads exactly those, neighbouring threads on
 //   neighbouring words, and derives both strings' colour codes in registers
-//   (lane_codes.cuh, the chunk-start kernel's own device code): nothing of
+//   (lane_codes.cuh, which the body kernel's recompute shares): nothing of
 //   length L ever reaches memory.  The mode, and with it L (10 or 18), is
 //   compiled in, so the recurrence unrolls with every code in a register.
 //   Each side comes as a (rows, cols) view with its own two strides, so a
@@ -81,8 +81,8 @@
 //   thread and are left so (0.0372 ms at 2^20 pairs and L = 10 on the same
 //   card, 2.3x lane_dist, against 0.0263 ms for its 84 MB at the memory
 //   rate): the port's paths go through lane_dist.
-//   (The encoder's chunk-start diff runs the same recurrence inside
-//   chunk_start.cu.)
+//   (The encoder's chunk-start diff runs the same recurrence in the body
+//   kernel's prologue, body.cu.)
 
 #include <cstdint>
 #include <cuda_runtime.h>

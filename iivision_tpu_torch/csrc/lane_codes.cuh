@@ -1,7 +1,8 @@
-// From a masked lane value to its NTSC colour codes, shared by the
-// chunk-start kernel (chunk_start.cu) and kernel A's lane-distance entry
+// From a masked lane value to its NTSC colour codes, shared by the body
+// kernel's recompute prologue (body.cu) and kernel A's lane-distance entry
 // (editdist.cu): the device form of screen.py `hgr_to_dots` and of
-// ops/distance.py `lane_pixels`.
+// ops/distance.py `lane_pixels`.  Both derive each code when their
+// recurrence step needs it, so no code array sits in registers.
 //
 // A DHGR lane's 13-bit masked value is its dot sequence; an HGR lane's
 // 14-bit value expands to 21 dots.  The colour code at dot i is the 4-dot
@@ -62,9 +63,14 @@ __device__ __forceinline__ int lane_code(int dots, int i, int phase) {
   return w;
 }
 
-// A lane value's L colour codes.
-__device__ __forceinline__ void lane_codes(int dots, int L, int phase,
-                                           uint8_t* out) {
-  for (int i = 0; i < L; ++i)
-    out[i] = static_cast<uint8_t>(lane_code(dots, i, phase));
+// The code at dot k from the code at dot k - 1.  A dot n sits at bit
+// (n + phase) & 3 of every code that holds it, so code k is code k - 1
+// with dot k - 1 replaced by dot k + 3, at the same bit.  x is the lane's
+// (dots ^ (dots >> 4)) << phase, whose bit k - 1 + phase is that change.
+// Four operations a code where lane_code takes about ten; equal to
+// lane_code(dots, k, phase) for k >= 1.
+__device__ __forceinline__ int lane_code_next(int code, int x, int k,
+                                              int phase) {
+  const int n = k - 1 + phase;
+  return code ^ ((x >> (n & ~3)) & (1 << (n & 3)));
 }

@@ -4,16 +4,16 @@ iivision_tpu/encoder.py `_build_encode_scan` / `encode_movie`, and of its
 
 The JAX encoder is one XLA scan over chunk bodies and their steps; this is
 the same computation as a Python loop over the same plan (`plan.plan_movie`)
-with one call per body:
+with one call per body (`ops/body.encode_body`, one kernel launch for all
+B movies on a card, as the JAX package's `chunk_body` is one body):
 
 - at a chunk start, the diff of the active bank against the frame's target
-  and the priority update (`ops/chunk_start`: one kernel launch for all B
-  movies on a card, for every colour model);
-- the body's steps (`ops/body`): per step the k busiest pages of each movie
-  (a stable top-k: ties go to the lower page, as `lax.top_k` orders them)
-  and j sequential sub-ops on each, with the nonces drawn inside - one
-  kernel launch per body on a card, the body kernel's joint instantiation
-  for joint content (`--joint_content`).
+  and the priority update (`ops/chunk_start`'s computation, for every
+  colour model: the body kernel's prologue on a card);
+- the body's steps: per step the k busiest pages of each movie (a stable
+  top-k: ties go to the lower page, as `lax.top_k` orders them) and j
+  sequential sub-ops on each, with the nonces drawn inside - the body
+  kernel's joint instantiation for joint content (`--joint_content`).
 
 A CPU tensor runs the plain torch forms inside the same wrappers.  Output
 is byte-identical to the JAX package for the same seeds: the nonces are
@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from iivision_tpu_torch import screen
-from iivision_tpu_torch.ops import body, chunk_start
+from iivision_tpu_torch.ops import body
 from iivision_tpu_torch.ops import random as trandom
 from iivision_tpu_torch.ops.chunk_start import n_banks
 from iivision_tpu_torch.plan import (  # noqa: F401
@@ -178,12 +178,10 @@ def encode_segment(state: EncodeState, lanes_tgt_b, bytes_tgt_b, f0: int,
     seg[..., 1] = pad.to(torch.uint8)[:, :, None, None]
     for b0 in range(s0, s1, Sc):
         frame, bank = int(sf[b0]) - f0, int(sb[b0])
-        if sr[b0]:
-            chunk_start.chunk_start(state.banks, lanes_tgt_b, frame, bank,
-                                    state.dist.sub, state.up, state.dw, mode)
         body.encode_body(state.up, state.dw, state.banks, lanes_tgt_b,
                          bytes_tgt_b, frame, bank, table, state.keys,
-                         state.nvalid, b0, Sc, state.ops, mode, state.joint)
+                         state.nvalid, b0, Sc, state.ops, mode, state.joint,
+                         sub=state.dist.sub if sr[b0] else None)
 
 
 def encode_movies(dist, lanes_tgt_b, bytes_tgt_b, plan: MoviePlan,
@@ -260,7 +258,7 @@ def _encode_segments(dist, pull, plan: MoviePlan, mode: VideoMode,
     (32, 256) int32 numpy, final aux).
 
     On a card nothing in the loop waits for it: a segment's targets go up
-    from pinned memory, its chunk starts and bodies are queued, and its
+    from pinned memory, its bodies (each with its chunk start) are queued, and its
     records come back on a second stream, behind an event recorded after
     its last body, into pinned memory that is read only after the loop.
     So the host pulls (or quantizes) segment i + 1 while the card encodes

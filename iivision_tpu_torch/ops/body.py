@@ -1,19 +1,25 @@
 """One chunk body of the encoder for B movies (counterpart of the JAX
-encoder's body scan, `step_body` and `sub_op`, iivision_tpu/encoder.py:
-567-759): steps s0 .. s0+Sc-1 of the plan on the active bank of one frame,
-with the default content rule or the joint one (`--joint_content`).
+encoder's `chunk_body`, iivision_tpu/encoder.py:482: the recompute
+`do_recompute` under lax.cond, :540-553, then the step scan, `step_body`
+and `sub_op`, :567-759): the chunk start's recompute if asked for, then
+steps s0 .. s0+Sc-1 of the plan on the active bank of one frame, with the
+default content rule or the joint one (`--joint_content`).
 
-- `encode_body_plain`: the per-step torch loop - page maxima (`amax`), the
+- `encode_body_plain`: `chunk_start.chunk_start_plain` when given a cost
+  basis `sub`, then the per-step torch loop - page maxima (`amax`), the
   nonce add, a stable sort for the top k, `index_select` of the pages'
   rows, the plain sub-op chain (`subop.sub_op_chain_plain`, default or
   joint), `index_copy_` back, with the nonces of the body drawn by
   `ops/random.step_nonces`;
-- `encode_body`: one launch of csrc/body.cu on a CUDA tensor (nonces drawn
-  inside the kernel; `joint` picks the kernel's joint instantiation), a
-  thread-block cluster of `cluster` CTAs per movie (1, 2, 4, 8 or 16;
-  None: `cluster_size` on the card's `max_active_clusters`),
-  `encode_body_plain` on a CPU tensor.  Each rule counts its launches:
-  `encode_body.launches` and `encode_body.joint_launches`;
+- `encode_body`: one launch of csrc/body.cu on a CUDA tensor (the
+  recompute, for `sub`, in the kernel's prologue; nonces drawn inside the
+  kernel; `joint` picks the kernel's joint instantiation), a thread-block
+  cluster of `cluster` CTAs per movie (1, 2, 4, 8 or 16; None:
+  `cluster_size` on the card's `max_active_clusters`), `encode_body_plain`
+  on a CPU tensor.  Each rule counts its launches, `encode_body.launches`
+  and `encode_body.joint_launches`, and a launch that recomputes also
+  counts in `encode_body.recompute_launches` ((16, 16) bases) or
+  `encode_body.yiq_recompute_launches` (the yiq costs);
 - `cluster_size`: the chooser, a plain function of B, k, j, the rule and
   the card's maximum active clusters per size;
 - `threefry_uniform`: the kernel's threefry for tests, writing
@@ -28,7 +34,10 @@ State (int32, updated in place at `bank`): up, dw, banks (B, n_banks, 32,
 int16 store costs.  keys: (B, 2) int32 words of `jax.random` keys
 (`random.key_words`), or None for the deterministic encoder.  nvalid: the
 plan's (S,) int32 `step_nvalid` on the device.  ops: (S, B, j, k, 6) uint8
-records, padding ops already written; steps with nvalid 0 keep them.
+records, padding ops already written; steps with nvalid 0 keep them.  sub:
+None (no recompute), the (16, 16) int32 cost basis of the window and mono
+models, or the yiq model's (n_lanes, L, 128, 128) int32 window costs
+(`ComputedDistance.sub`).
 """
 
 import ctypes
@@ -39,8 +48,9 @@ import torch
 
 from iivision_tpu_torch import _build, screen
 from iivision_tpu_torch.ops import random as trandom
-from iivision_tpu_torch.ops import subop
-from iivision_tpu_torch.ops.chunk_start import bank_lanes, n_banks
+from iivision_tpu_torch.ops import subop, yiq
+from iivision_tpu_torch.ops.chunk_start import (bank_lanes,
+                                                chunk_start_plain, n_banks)
 from iivision_tpu_torch.video_mode import VideoMode
 
 
@@ -63,9 +73,13 @@ def _key_pair(keys: torch.Tensor) -> tuple:
 
 def encode_body_plain(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame: int,
                       bank: int, table, keys, nvalid, s0: int, Sc: int, ops,
-                      mode: VideoMode, joint: bool = False) -> None:
-    """The body as the per-step torch loop (see the module docstring);
-    joint: joint content selection."""
+                      mode: VideoMode, joint: bool = False, *,
+                      sub=None) -> None:
+    """The body as the per-step torch loop (see the module docstring),
+    after `chunk_start_plain` under `sub` unless sub is None; joint: joint
+    content selection."""
+    if sub is not None:
+        chunk_start_plain(banks, lanes_tgt_b, frame, bank, sub, up, dw, mode)
     dev = up.device
     B = up.shape[0]
     j, k = ops.shape[2], ops.shape[3]
@@ -148,22 +162,43 @@ def _chosen_size(index: int, B: int, k: int, j: int, joint: bool) -> int:
     return cluster_size(B, k, j, joint, max_active_clusters(index, joint))
 
 
+def _check_sub(sub, device, mode: VideoMode) -> bool:
+    """Raise ValueError unless `sub` is a cost basis the recompute takes on
+    `device`: contiguous int32 (16, 16), or the yiq model's (n_lanes, L,
+    128, 128).  Returns whether it is the yiq costs."""
+    yiq_model = sub.dim() == 4
+    shape = ((screen.spec_for_mode(mode).N_LANES, yiq.n_pixels(mode), 128,
+              128) if yiq_model else (16, 16))
+    if sub.device != device or sub.dtype != torch.int32 \
+            or not sub.is_contiguous() or tuple(sub.shape) != shape:
+        raise ValueError(
+            "the recompute's cost basis: want int32 %s contiguous on %s, got "
+            "%s %s on %s" % (shape, device, sub.dtype, tuple(sub.shape),
+                             sub.device))
+    return yiq_model
+
+
 def encode_body(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame: int,
                 bank: int, table, keys, nvalid, s0: int, Sc: int, ops,
-                mode: VideoMode, joint: bool = False, *, cluster=None,
-                smids=None) -> None:
+                mode: VideoMode, joint: bool = False, *, sub=None,
+                cluster=None, smids=None) -> None:
     """The body: one launch of the body kernel on a CUDA tensor (its joint
     instantiation if `joint`), `encode_body_plain` on a CPU tensor.
-    cluster: CTAs per movie (one of CLUSTER_SIZES), or None for
-    `cluster_size`'s choice; any other value raises ValueError before a
-    launch, on any device.  smids: None, or an int32 (B * cluster,) tensor
-    on the card that receives the SM each CTA ran on."""
+    sub: None, or the cost basis of the chunk start that the launch runs
+    first (the kernel's prologue; see the module docstring); a basis of
+    the wrong shape, dtype or device raises ValueError before a launch, on
+    any device.  cluster: CTAs per movie (one of CLUSTER_SIZES), or None
+    for `cluster_size`'s choice; any other value raises ValueError before
+    a launch, on any device.  smids: None, or an int32 (B * cluster,)
+    tensor on the card that receives the SM each CTA ran on."""
     if cluster is not None and cluster not in CLUSTER_SIZES:
         raise ValueError("the body kernel runs clusters of %s CTAs; got %r"
                          % (CLUSTER_SIZES, cluster))
+    yiq_model = sub is not None and _check_sub(sub, up.device, mode)
     if up.device.type == "cpu":
         encode_body_plain(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame,
-                          bank, table, keys, nvalid, s0, Sc, ops, mode, joint)
+                          bank, table, keys, nvalid, s0, Sc, ops, mode, joint,
+                          sub=sub)
         return
     if up.device.type != "cuda":
         raise ValueError("no kernel for device %s" % up.device)
@@ -209,15 +244,19 @@ def encode_body(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame: int,
         ctypes.c_void_p(nvalid.data_ptr()), S, int(s0), int(Sc), B, k, j,
         ctypes.c_void_p(ops.data_ptr()), int(joint), int(cluster),
         ctypes.c_void_p(None if smids is None else smids.data_ptr()),
+        ctypes.c_void_p(None if sub is None else sub.data_ptr()),
+        0 if sub is None else 2 if yiq_model else 1,
         ctypes.c_void_p(_build.stream_ptr(up.device)))
-    if joint:
-        _build.count(encode_body, "joint_launches")
-    else:
-        _build.count(encode_body, "launches")
+    _build.count(encode_body, "joint_launches" if joint else "launches")
+    if sub is not None:
+        _build.count(encode_body, "yiq_recompute_launches" if yiq_model
+                     else "recompute_launches")
 
 
 encode_body.launches = 0
 encode_body.joint_launches = 0
+encode_body.recompute_launches = 0
+encode_body.yiq_recompute_launches = 0
 
 
 def threefry_uniform(keys: torch.Tensor, steps: torch.Tensor, k: int,

@@ -6,16 +6,18 @@ it: the plan's chunk starts (the diff of the active bank against the
 frame's target, a diagonal edit-distance DP per page offset, or the yiq
 model's window sums) and its bodies (per step the k busiest pages and j
 sequential sub-ops on each), exactly as `encoder.encode_segment` runs
-them.  So the same count reads the chunk-start and body kernels on a card,
-the plain torch forms, or any later kernel that does the same work.  The
+them.  So the same count reads the body kernel on a card (a chunk start
+is the prologue of the body launch that follows it), the plain torch
+forms, or any later kernel that does the same work.  The
 JAX package's model counted XLA's one-hot matmuls; the port has none, and
 nothing in the encode runs on the tensor cores, so there is no MFU here.
 
 - `chunk_start_cost` / `body_cost`: (bytes, float32 operations, int32
-  operations) of one chunk start / one body for B movies.  Bytes count
-  each input read once and each output written once.
-- `encode_cost`: their sum over a plan, with the counts of chunk starts,
-  bodies, steps and sequential sub-ops.
+  operations) of one chunk start / one body for B movies; a body that
+  recomputes costs the sum of the two.  Bytes count each input read once
+  and each output written once.
+- `encode_cost`: their sum over a plan, with the counts of chunk starts
+  (recomputing bodies), bodies, steps and sequential sub-ops.
 - `device_peaks`: a card's HBM bytes/s, float32 operations/s outside the
   tensor cores and int32 operations/s, by the card's name.  A card not in
   `CARD_PEAKS` raises: a wrong peak would give a wrong share.
@@ -90,13 +92,16 @@ def least_time(nbytes: float, fp32_ops: float, int32_ops: float,
 
 
 def chunk_start_cost(mode: VideoMode, batch: int, model: str = "window"):
-    """(bytes, float32 ops, int32 ops) of one chunk start for `batch`
-    movies.  Bytes: every bank row, the bank's two target lanes, up read
-    and written, dw written, and the cost basis (for yiq the window costs
-    the offsets index: at most one int32 per offset and window).  int32
-    operations at the offsets that are not holes: one add per yiq window,
-    or an add, two compares and a min per DP step."""
-    nbytes = batch * (n_banks(mode) * PAGE * 4 + PAGE * 4 + 3 * PAGE * 4)
+    """(bytes, float32 ops, int32 ops) that a chunk start adds to the body
+    launch whose prologue runs it, for `batch` movies.  Bytes: the other
+    bank's row (DHGR; the active bank's row, up and the bank's two target
+    lanes are the body's own reads, and the new up and dw stay on the chip
+    until the body writes them) and the cost basis (for yiq the window
+    costs the offsets index: at most one int32 per offset and window); the
+    body then reads no dw (`body_cost(recompute=True)`).  int32 operations
+    at the offsets that are not holes: one add per yiq window, or an add,
+    two compares and a min per DP step."""
+    nbytes = batch * (n_banks(mode) - 1) * PAGE * 4
     if model == "yiq":
         windows = yiq.n_pixels(mode)
         nbytes += min(spec_for_mode(mode).N_LANES * windows * 128 * 128,
@@ -118,7 +123,8 @@ def nonce_int32_ops(k: int, j: int) -> int:
 
 
 def body_cost(mode: VideoMode, k: int, j: int, batch: int, steps: int,
-              run: int, joint: bool = False, seeded: bool = False):
+              run: int, joint: bool = False, seeded: bool = False,
+              recompute: bool = False):
     """(bytes, float32 ops, int32 ops) of one body of `steps` plan steps,
     `run` of them not padding, for `batch` movies.  Bytes per movie: up, dw
     and the bank bytes read and written, the target bytes and the bank's
@@ -126,9 +132,11 @@ def body_cost(mode: VideoMode, k: int, j: int, batch: int, steps: int,
     body's records.  Joint content adds the bank's table rows (each read
     once) and, per offset and content of every sub-op run, a float32
     subtract and compare.  seeded: the nonce draws of every step run
-    (`nonce_int32_ops`) count as int32 operations."""
+    (`nonce_int32_ops`) count as int32 operations.  recompute: the launch
+    runs a chunk start first (whose own work is `chunk_start_cost`), so dw
+    is not read."""
     C = n_contents(mode)
-    nbytes = batch * (3 * 2 * PAGE * 4 + 2 * PAGE * 4
+    nbytes = batch * ((5 if recompute else 6) * PAGE * 4 + 2 * PAGE * 4
                       + run * k * j * 256 * 2 + steps * k * j * 6)
     fp32 = 0.0
     if joint:
@@ -144,7 +152,7 @@ class EncodeCost:
     bytes: float
     fp32_ops: float
     int32_ops: float
-    chunk_starts: int  # launches, over every shard
+    chunk_starts: int  # recomputing bodies, over every shard
     bodies: int  # launches, over every shard
     steps: int
     seq_subops: int  # dependent sub-ops in one shard's launch sequence
@@ -155,18 +163,22 @@ def encode_cost(plan, mode: VideoMode, batch: int = 1,
                 shards: int = 1, seeded: bool = False) -> EncodeCost:
     """The cost of encoding `plan` for `batch` movies split into `shards`
     lockstep launch sequences (a mesh's shards; each launches once per
-    chunk start and body for its movies).  A chunk start runs at every
-    body whose first step recomputes; a body runs its steps' j sub-ops
-    wherever a step is not padding.  seeded: count the bodies' nonce
-    draws (`body_cost`)."""
+    body for its movies).  A chunk start runs in every body whose first
+    step recomputes (`chunk_starts` counts those bodies, not launches of
+    their own); a body runs its steps' j sub-ops wherever a step is not
+    padding.  seeded: count the bodies' nonce draws (`body_cost`)."""
     Sc = int(plan.chunk_steps)
     nv = np.asarray(plan.step_nvalid)
     runs = (nv.reshape(-1, Sc) > 0).sum(axis=1)
-    n_cs = int(np.asarray(plan.step_recompute)[::Sc].sum())
+    recompute = np.asarray(plan.step_recompute)[::Sc].astype(bool)
+    n_cs = int(recompute.sum())
     total = np.asarray(chunk_start_cost(mode, batch, model)) * n_cs
-    for run, count in zip(*np.unique(runs, return_counts=True)):
+    kinds, counts = np.unique(np.stack([runs, recompute]), axis=1,
+                              return_counts=True)
+    for (run, rec), count in zip(kinds.T, counts):
         total = total + count * np.asarray(body_cost(
-            mode, plan.k, plan.j, batch, Sc, int(run), joint, seeded))
+            mode, plan.k, plan.j, batch, Sc, int(run), joint, seeded,
+            bool(rec)))
     return EncodeCost(
         bytes=float(total[0]), fp32_ops=float(total[1]),
         int32_ops=float(total[2]), chunk_starts=n_cs * shards,

@@ -203,8 +203,8 @@ def hgr_masked_lanes(main: torch.Tensor) -> torch.Tensor:
 def masked_lane_at(main: torch.Tensor, aux, mode: VideoMode, lane: int,
                    col: torch.Tensor) -> torch.Tensor:
     """Masked lane `lane` at columns `col`, read per column from the four
-    bytes 2c-1 .. 2c+2 of each bank row, as the chunk-start kernel
-    (csrc/chunk_start.cu) derives it for one page offset.
+    bytes 2c-1 .. 2c+2 of each bank row, as the body kernel's recompute
+    prologue (csrc/body.cu) derives it for one page offset.
 
     main, aux: (..., 256) screen-byte rows (aux None for HGR); col: (N,)
     int64 column indices in 0..127.  Returns (..., N) int32, equal to

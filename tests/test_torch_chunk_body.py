@@ -1,12 +1,14 @@
 """The encoder's chunk-start and body pieces in iivision_tpu_torch on the
-CPU: the per-offset lane indexing the chunk-start kernel uses, against the
-vectorised masked lanes; the plain chunk start (window, mono and yiq
-models) against a diff built from the JAX package's screen and distance
-modules; the yiq instantiation's per-offset window indexing against the
-plain chunk start; the body kernel's nonce indexing against jax.random;
-the key words; foreign enums refused by each public entry point; the new
-wrappers refusing devices without a kernel; and encoder.py calling only
-the kernel wrappers.  Everything is exact (integer or bit-equal)."""
+CPU: the per-offset lane indexing the body kernel's recompute prologue
+uses, against the vectorised masked lanes; the plain chunk start and the
+body entry that runs it (window, mono and yiq models) against a diff
+built from the JAX package's screen and distance modules; the yiq
+recompute's per-offset window indexing against the plain chunk start; the
+body kernel's nonce indexing against jax.random; the key words; foreign
+enums refused by each public entry point; the body wrappers refusing
+devices without a kernel; and encoder.py calling only the kernel
+wrappers, a chunk start as the body's `sub`.  Everything is exact
+(integer or bit-equal)."""
 
 import ast
 import os
@@ -77,7 +79,10 @@ def test_chunk_start_plain_matches_jax_diff(mode, bank, model):
     iivision_tpu.screen and iivision_tpu.ops.distance (numpy): the masked
     lanes of the banks, dist_lane_pairs on the bank's two lanes,
     interleaved, zero at the holes; up = where(d == 0, 0, up) + d, dw = d.
-    The wrapper takes the plain form on the CPU."""
+    Both chunk_start_plain and the body entry that runs it (encode_body
+    with `sub`, on a body of one padded step, which changes nothing
+    after the recompute) write it; the entry takes the plain form on the
+    CPU."""
     B, F, frame = 2, 3, 1
     banks = random_banks(B, mode, 2)
     tgt = random_banks(B * F, mode, 3).reshape((B, F) + banks.shape[1:])
@@ -107,12 +112,29 @@ def test_chunk_start_plain_matches_jax_diff(mode, bank, model):
     want_dw[:, bank] = d
     assert d.max() > 0 and (d == 0).any()
 
-    for fn in (chunk_start.chunk_start_plain, chunk_start.chunk_start):
+    for fn in (chunk_start.chunk_start_plain, recompute_in_body):
         up, dw = up0.clone(), dw0.clone()
         fn(banks, lanes_tgt, frame, bank, dist.sub, up, dw, mode)
         assert up.dtype == dw.dtype == torch.int32
         assert np.array_equal(up.numpy(), want_up)
         assert np.array_equal(dw.numpy(), want_dw)
+
+
+def recompute_in_body(banks, lanes_tgt, frame: int, bank: int, sub, up, dw,
+                      mode):
+    """The chunk start through the body entry: `body.encode_body` with the
+    cost basis `sub`, on one padded step (nvalid 0), so the body keeps the
+    recompute's state.  The bank bytes are left as they were."""
+    B, F = lanes_tgt.shape[:2]
+    n_lanes = screen.spec_for_mode(mode).N_LANES
+    table = torch.zeros((n_lanes * 4, 128), dtype=torch.int16)
+    ops = torch.zeros((1, B, 1, 1, 6), dtype=torch.uint8)
+    bytes_tgt = torch.zeros((B, F, 2, 32, 256), dtype=torch.int32)
+    kept = banks.clone()
+    body.encode_body(up, dw, banks, lanes_tgt, bytes_tgt, frame, bank, table,
+                     None, torch.zeros(1, dtype=torch.int32), 0, 1, ops, mode,
+                     sub=sub)
+    assert torch.equal(banks, kept)
 
 
 def yiq_diff_at(banks, lanes_tgt, frame: int, bank: int, sub, mode):
@@ -164,19 +186,26 @@ def test_yiq_window_indexing_matches_plain(mode, bank):
 
 
 def test_encoder_calls_only_kernel_wrappers():
-    """encoder.py calls no `*_plain` function: every chunk start and body
-    goes through the wrappers that launch a kernel on a card (the CPU form
-    runs inside them)."""
+    """encoder.py calls no `*_plain` function: every body goes through the
+    wrapper that launches a kernel on a card (the CPU form runs inside
+    it), once per body, passing the cost basis as `sub` so that a
+    recomputing body's chunk start runs in the same launch; nothing calls
+    a chunk start of its own."""
     path = os.path.join(os.path.dirname(encoder.__file__), "encoder.py")
     with open(path) as f:
         tree = ast.parse(f.read())
-    called = set()
+    called, body_calls = set(), []
     for node in ast.walk(tree):
         if isinstance(node, ast.Call):
             fn = node.func
-            called.add(fn.attr if isinstance(fn, ast.Attribute)
-                       else getattr(fn, "id", ""))
-    assert {"chunk_start", "encode_body"} <= called
+            name = (fn.attr if isinstance(fn, ast.Attribute)
+                    else getattr(fn, "id", ""))
+            called.add(name)
+            if name == "encode_body":
+                body_calls.append({kw.arg for kw in node.keywords})
+    assert "encode_body" in called
+    assert body_calls == [{"sub"}], body_calls
+    assert not [n for n in called if "chunk_start" in n], called
     assert not [n for n in called if n.endswith("_plain")], called
 
 
@@ -272,13 +301,14 @@ def test_public_entry_points_refuse_foreign_enums(entry):
 
 
 def test_new_wrappers_refuse_devices_without_a_kernel():
-    """No fallback: the chunk-start and body wrappers on the meta device
-    raise, and the threefry hook runs only on a card."""
+    """No fallback: the body wrapper on the meta device raises, with the
+    chunk start's cost basis (the recompute in its prologue) and without,
+    and the threefry hook runs only on a card."""
     meta = torch.zeros((1, 2, 32, 256), dtype=torch.int32, device="meta")
     sub = torch.zeros((16, 16), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        chunk_start.chunk_start(meta, meta, 0, 0, sub, meta, meta,
-                                VideoMode.DHGR)
+        body.encode_body(meta, meta, meta, meta, meta, 0, 0, sub, None,
+                         sub, 0, 1, meta, VideoMode.DHGR, sub=sub)
     with pytest.raises(ValueError, match="no kernel"):
         body.encode_body(meta, meta, meta, meta, meta, 0, 0, sub, None,
                          sub, 0, 1, meta, VideoMode.DHGR)

@@ -11,7 +11,7 @@ import torch
 
 from iivision_tpu import roofline as jroofline
 from iivision_tpu_torch import encoder, roofline
-from iivision_tpu_torch.ops import body, chunk_start, yiq
+from iivision_tpu_torch.ops import body, yiq
 from iivision_tpu_torch.video_mode import VideoMode
 
 from tests.test_torch_batch import jm
@@ -36,7 +36,8 @@ def plan_for(mode, k, j, seconds=1.0):
 def test_counts_match_jax_and_the_encoder(mode, k, j, monkeypatch):
     """Chunk starts equal the JAX model's n_chunks for the same plan;
     chunk starts and bodies equal the calls the port's encode_segment makes
-    (the wrappers replaced by counters), here and split over 2 shards."""
+    (the body wrapper replaced by a counter: a call with a cost basis is a
+    recomputing body), here and split over 2 shards."""
     plan = plan_for(mode, k, j)
     cost = roofline.encode_cost(plan, mode, batch=3)
     assert cost.chunk_starts == jroofline.encode_cost(plan, jm(mode)).n_chunks
@@ -44,13 +45,11 @@ def test_counts_match_jax_and_the_encoder(mode, k, j, monkeypatch):
     assert cost.seq_subops == int((plan.step_nvalid > 0).sum()) * j
     calls = {"chunk_start": 0, "encode_body": 0}
 
-    def counter(name):
-        def call(*args, **kw):
-            calls[name] += 1
-        return call
+    def counter(*args, sub=None, **kw):
+        calls["encode_body"] += 1
+        calls["chunk_start"] += sub is not None
 
-    monkeypatch.setattr(chunk_start, "chunk_start", counter("chunk_start"))
-    monkeypatch.setattr(body, "encode_body", counter("encode_body"))
+    monkeypatch.setattr(body, "encode_body", counter)
     F = int(plan.step_frame.max()) + 1
     main = np.zeros((3, F, 32, 256), np.uint8)
     lanes, bytes_ = encoder.prepare_targets(
@@ -69,14 +68,16 @@ def test_counts_match_jax_and_the_encoder(mode, k, j, monkeypatch):
 @pytest.mark.parametrize("B", [1, 32])
 def test_kernel_counts_equal_the_smoke_formulas(mode, B):
     """chunk_start_cost and body_cost against chip_smoke.py's formulas for
-    the chunk-start kernel (window, mono and yiq bases) and the body kernel
-    (default and joint, a body with padding and one without)."""
+    the body kernel's recompute prologue (window, mono and yiq bases: the
+    other bank's row and the basis) and the body kernel (default and joint,
+    a body with padding and one without, with and without the recompute,
+    which drops the read of dw)."""
     nb = 2 if mode == DHGR else 1
     L = 10 if mode == DHGR else 18
     for model in ("window", "mono", "yiq"):
         sub_shape = ((nb * 2 if mode == DHGR else 2, yiq.n_pixels(mode),
                       128, 128) if model == "yiq" else (16, 16))
-        nbytes = B * (nb * 8192 * 4 + 8192 * 4 + 3 * 8192 * 4)
+        nbytes = B * (nb - 1) * 8192 * 4
         nbytes += (min(int(np.prod(sub_shape)), B * 8192 * sub_shape[1]) * 4
                    if model == "yiq" else 1024)
         int_ops = B * 32 * 240 * (sub_shape[1] if model == "yiq"
@@ -86,14 +87,17 @@ def test_kernel_counts_equal_the_smoke_formulas(mode, B):
     C = 128 if mode == DHGR else 256
     for k, j, Sc, run in ((8, 1, 8, 8), (16, 4, 2, 1), (8, 1, 8, 5)):
         for joint in (False, True):
-            nbytes = B * (3 * 2 * 8192 * 4 + 2 * 8192 * 4
-                          + run * k * j * 256 * 2 + Sc * k * j * 6)
-            ops_f = 0.0
-            if joint:
-                nbytes += B * 8192 * C * 2
-                ops_f = 2.0 * B * run * k * j * 256 * C
-            assert roofline.body_cost(mode, k, j, B, Sc, run, joint) == (
-                nbytes, ops_f, 0.0)
+            for recompute in (False, True):
+                nbytes = B * ((5 if recompute else 6) * 8192 * 4
+                              + 2 * 8192 * 4 + run * k * j * 256 * 2
+                              + Sc * k * j * 6)
+                ops_f = 0.0
+                if joint:
+                    nbytes += B * 8192 * C * 2
+                    ops_f = 2.0 * B * run * k * j * 256 * C
+                assert roofline.body_cost(
+                    mode, k, j, B, Sc, run, joint,
+                    recompute=recompute) == (nbytes, ops_f, 0.0)
 
 
 @pytest.mark.parametrize("mode,k,j", [(DHGR, 32, 10), (DHGR, 1, 1),
