@@ -1,0 +1,124 @@
+"""The plain reference agrees with the port's CPU path on a few frames of
+each configuration: ingest on both paths, the levels, the encoder's ops
+and final screens, the stream."""
+
+import numpy as np
+import pytest
+import torch
+
+from benchmark import harness
+from benchmark.gen import clips as gen
+from benchmark.reference import audio, check, encode, ingest
+from benchmark.reference.palettes import Palette as RP
+from benchmark.reference.plan import flatten_ops, plan_movie
+from benchmark.reference.stream import frame_stream
+from benchmark.reference.video_mode import VideoMode as RV
+
+from iivision_tpu_torch import audio as p_audio
+from iivision_tpu_torch import encoder as p_encoder
+from iivision_tpu_torch import frames as p_frames
+from iivision_tpu_torch.bench import audio_levels_device
+from iivision_tpu_torch.movie import get_distance
+from iivision_tpu_torch.ops import dither as p_dither
+from iivision_tpu_torch.palettes import Palette
+from iivision_tpu_torch.parallel import mesh
+from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
+from iivision_tpu_torch.video_mode import VideoMode
+
+MODES = ("DHGR", "HGR")
+
+
+def _clip(F, phase=0.7):
+    return gen.synth_movies_device(np.array([phase, phase + 1.1]), F, "cpu")
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_device_ingest(mode):
+    rgb = _clip(3)
+    lanes, by = mesh.ingest_movies_batch(rgb, VideoMode[mode], Palette.NTSC)
+    for b in range(2):
+        main, aux = ingest.ingest_device(rgb[b], RV[mode], RP.NTSC)
+        assert torch.equal(by[b, :, 0].to(torch.uint8), main)
+        assert torch.equal(by[b, :, 1].to(torch.uint8), aux)
+        ref_lanes, ref_bytes = encode.target_lanes(main, aux, RV[mode])
+        assert torch.equal(ref_lanes, lanes[b])
+        assert torch.equal(ref_bytes, by[b])
+
+
+def test_host_ingest():
+    rgb = _clip(6)[0].numpy()
+    parts = list(p_frames.ingest_stream_array(
+        rgb, VideoMode.DHGR, Palette.NTSC, every_n_video_frames=2))
+    main, aux = ingest.ingest_host(rgb[::2], RV.DHGR, RP.NTSC)
+    assert np.array_equal(np.concatenate([p[0] for p in parts]), main)
+    assert np.array_equal(np.concatenate([p[1] for p in parts]), aux)
+
+
+def test_lut_at_keys():
+    lut = p_dither._host_fused_lut(Palette.NTSC)
+    keys = np.random.default_rng(3).integers(0, 1 << 24, 200_000)
+    assert np.array_equal(ingest.lut_codes(keys, RP.NTSC), lut[keys])
+
+
+def test_levels():
+    wave = gen.tone(0.5, 14700, 440.0)
+    aud = p_audio.Audio(data=wave, rate=14700, bitrate=14700, device="cpu")
+    norm = audio.normalization(wave, 14700, 14700)
+    assert norm == aud.normalization
+    assert np.array_equal(audio.levels_host(wave, norm), aud.levels())
+    dev = audio_levels_device(torch.as_tensor(wave), aud.normalization)
+    assert torch.equal(audio.levels_device(torch.as_tensor(wave), norm), dev)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_encode_and_stream(mode):
+    F_src = 8
+    rgb = _clip(F_src // 2, phase=2.3)
+    wave = gen.tone(F_src / 30, 14700, 440.0)
+    pm = VideoMode[mode]
+    plan, _ = p_encoder.plan_movie(
+        n_frames=F_src, n_audio_ticks=len(wave), input_frame_rate=30,
+        ticks_per_second=14700, every_n_video_frames=2, mode=pm, k=16, j=4)
+    lanes, by = mesh.ingest_movies_batch(rgb, pm, Palette.NTSC)
+    dist = get_distance(pm, Palette.NTSC, device="cpu")
+    ops, main, aux = mesh.encode_movies_batch(dist, lanes, by, plan, pm,
+                                              seeds=[11, 2 ** 31 - 1])
+    flat = mesh.fetch_ops_compact(ops, plan)
+    rplan, _ = plan_movie(F_src, len(wave), 30.0, 14700.0, 2, RV[mode], 16, 4)
+    assert np.array_equal(rplan.step_nvalid, plan.step_nvalid)
+    st = check.Setting(harness.load_json(
+        "%s/configs/%s_ntsc_k16_j4.json" % (harness.BENCH_DIR, mode.lower())),
+        "device", F_src, len(wave), "cpu")
+    r_ops, r_main, r_aux = encode.encode_movies(
+        st.dist, *encode.target_lanes(by[:, :, 0].to(torch.uint8),
+                                      by[:, :, 1].to(torch.uint8), RV[mode]),
+        rplan, RV[mode], [11, 2 ** 31 - 1])
+    assert torch.equal(r_main, main) and torch.equal(r_aux, aux)
+    lv = np.clip(np.arange(plan.n_ops) % 32 - 15, -15, 16).astype(np.int32)
+    for b in range(2):
+        r_flat = flatten_ops(r_ops[b].numpy(), rplan)
+        assert np.array_equal(r_flat, flat[b])
+        assert frame_stream(r_flat, lv, RV[mode]) == emit_stream_fast(
+            flat[b], lv, pm)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_stream_framing_edges(mode):
+    rng = np.random.default_rng(1)
+    for n in (1, 290, 291, 292, 583, 584, 2000):
+        flat = np.stack([rng.integers(32, 64, n)] + [
+            rng.integers(0, 256, n) for _ in range(5)], 1).astype(np.uint8)
+        lv = rng.integers(-15, 17, n).astype(np.int32)
+        assert frame_stream(flat, lv, RV[mode]) == emit_stream_fast(
+            flat, lv, VideoMode[mode])
+
+
+def test_control_is_lower_precision_only():
+    """The control's stages differ from the reference's only in precision:
+    on integer-valued inputs that no rounding touches they agree."""
+    x = torch.zeros(64)
+    assert torch.equal(audio.levels_device(x, 2.0, True),
+                       audio.levels_device(x, 2.0))
+    flat = np.zeros((2, 10, 10, 3), np.uint8)
+    assert np.array_equal(ingest.resize_host(flat, 10, 5, True),
+                          ingest.resize_host(flat, 10, 5))
