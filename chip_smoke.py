@@ -164,61 +164,59 @@ import types
 
 GOLDEN_SHA = "57fdd52adf53d75101ed121d28d8a5389465c09f99d960ba6c47c20dbdb30fbc"
 
-# kernel -> (wrapper module, wrapper name, the wrapper's launch counter,
-# source, the TPU or JAX function it replaces)
+# kernel -> (its launch counter, as `iivision_tpu_torch.trace.counters`
+# names it, source, the TPU or JAX function it replaces)
 # (the chunk start is the body kernel's prologue: its counters are the body
 # wrapper's launches that recompute)
 KERNELS = {
-    "chunk_start": ("body", "encode_body", "recompute_launches",
+    "chunk_start": ("encode_body.recompute_launches",
                     "iivision_tpu_torch/csrc/body.cu",
                     "iivision_tpu/encoder.py:540"),
-    "chunk_start_yiq": ("body", "encode_body", "yiq_recompute_launches",
+    "chunk_start_yiq": ("encode_body.yiq_recompute_launches",
                         "iivision_tpu_torch/csrc/body.cu",
                         "iivision_tpu/encoder.py:374"),
-    "encode_body": ("body", "encode_body", "launches",
+    "encode_body": ("encode_body.launches",
                     "iivision_tpu_torch/csrc/body.cu",
                     "iivision_tpu/encoder.py:567"),
-    "encode_body_joint": ("body", "encode_body", "joint_launches",
+    "encode_body_joint": ("encode_body.joint_launches",
                           "iivision_tpu_torch/csrc/body.cu",
                           "iivision_tpu/encoder.py:583"),
-    "threefry_uniform": ("body", "threefry_uniform", "launches",
+    "threefry_uniform": ("threefry_uniform.launches",
                          "iivision_tpu_torch/csrc/body.cu",
                          "iivision_tpu/encoder.py:695"),
-    "editdist_tile": ("editdist", "pair_distance", "launches",
+    "editdist_tile": ("pair_distance.launches",
                       "iivision_tpu_torch/csrc/editdist.cu",
                       "iivision_tpu/ops/editdist.py:232"),
-    "lane_dist": ("editdist", "lane_distance", "launches",
+    "lane_dist": ("lane_distance.launches",
                   "iivision_tpu_torch/csrc/editdist.cu",
                   "iivision_tpu/ops/distance.py:150"),
-    "dist_pairs": ("editdist", "dist_pairs_elementwise", "launches",
+    "dist_pairs": ("dist_pairs_elementwise.launches",
                    "iivision_tpu_torch/csrc/editdist.cu",
                    "iivision_tpu/ops/distance.py:72"),
-    "subop_bench": ("subop_bench", "run_kernel", "launches",
+    "subop_bench": ("run_kernel.launches",
                     "iivision_tpu_torch/csrc/subop_bench.cu",
                     "tools/bench_subop_pallas.py:183"),
 }
 
 
-def wrapper(name):
-    import importlib
-
-    mod, fn = KERNELS[name][:2]
-    return getattr(importlib.import_module("iivision_tpu_torch.ops." + mod),
-                   fn)
-
-
 def launch_count(name) -> int:
-    return getattr(wrapper(name), KERNELS[name][2])
+    from iivision_tpu_torch import trace
+
+    return trace.counters()[KERNELS[name][0]]
 
 
 def counted(path, want, fn, *args, **kw):
     """Run one path with every launch count at 0; fail unless each kernel
     in `want` launched.  Returns (fn's result, {kernel: launches})."""
-    for name in KERNELS:
-        setattr(wrapper(name), KERNELS[name][2], 0)
+    from iivision_tpu_torch import _build, trace
+
+    trace.counters()  # imports every kernel's module: all counters made
+    for wrapper, attr in _build.COUNTERS:
+        setattr(wrapper, attr, 0)
     t0 = time.time()
     out = fn(*args, **kw)
-    launches = {name: launch_count(name) for name in KERNELS}
+    got = trace.counters()
+    launches = {name: got[KERNELS[name][0]] for name in KERNELS}
     print("launches %s: %s path_s=%.1f" % (path, json.dumps(launches),
                                             time.time() - t0))
     for name in want:
@@ -384,7 +382,7 @@ def main(argv=()):
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     kernels = []
-    for name, (_, _, _, src, replaces) in KERNELS.items():
+    for name, (_, src, replaces) in KERNELS.items():
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=totals[name])
         entry.update((k, report[name][k]) for k in keys)
@@ -2160,6 +2158,10 @@ def timed_transcode(dev, dist, rgb, wav, mode, k: int, j: int, tmp, *,
     with open(out, "rb") as f:
         data = f.read()
     launched = tuple(a - b for a, b in zip(enc_launches(), before))
+    if launched[1] != stats["body_launches"]:
+        raise AssertionError(
+            "the counters saw %d body launches, the encode's timings %d"
+            % (launched[1], stats["body_launches"]))
     return (m, data, stats, (torch.cuda.max_memory_allocated(), held),
             launched)
 

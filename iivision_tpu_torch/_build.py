@@ -149,14 +149,25 @@ def launch(name: str, *args) -> None:
             name, err, lib.iiv_error_string(err).decode()))
 
 
-_COUNT_LOCK = threading.Lock()
+COUNT_LOCK = threading.Lock()
+# (wrapper, attr) of every kernel launch counter, as `counter` made them:
+# the one list that `trace.counters` and the chip smoke read
+COUNTERS = []
+
+
+def counter(wrapper, *attrs: str) -> None:
+    """Give a kernel wrapper its launch counters (default `launches`), each
+    at 0, and list them in COUNTERS."""
+    for attr in attrs or ("launches",):
+        setattr(wrapper, attr, 0)
+        COUNTERS.append((wrapper, attr))
 
 
 def count(wrapper, attr: str = "launches") -> None:
     """Add one to a kernel wrapper's launch counter.  The shards of a mesh
     launch from threads of their own, so the read-modify-write holds one
     lock: no launch goes uncounted."""
-    with _COUNT_LOCK:
+    with COUNT_LOCK:
         setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 

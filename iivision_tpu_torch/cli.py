@@ -169,14 +169,13 @@ def transcode_batch(args):
     runs `parallel.mesh.encode_movies_mixed` with seeds args.seed + i,
     sharded over `_group_mesh(args.mesh, ...)`.
     Returns the output paths."""
-    import time
-
     import numpy as np
 
     from iivision_tpu_torch import audio as audio_mod, frames, require_device
     from iivision_tpu_torch.ops import distance
     from iivision_tpu_torch.parallel import mesh as pmesh
     from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
+    from iivision_tpu_torch.trace import span
 
     dev = require_device(args.device)
     mode = VideoMode[args.video_mode]
@@ -222,14 +221,15 @@ def transcode_batch(args):
         movies = [(ingested[i][1].targets_main, ingested[i][1].targets_aux,
                    ingested[i][1].n_frames_total,
                    len(ingested[i][2].levels())) for i in idxs]
-        t0 = time.time()
-        flats, _, n_ops = pmesh.encode_movies_mixed(
-            dist, movies, mode, rate, float(args.audio_bitrate),
-            every_n_video_frames=args.every_n_video_frames,
-            k=args.k, j=args.j, seeds=[args.seed + i for i in idxs],
-            joint=args.joint_content,
-            mesh=_group_mesh(args.mesh, len(movies), args.device))
-        encode_s = time.time() - t0
+        timed = {}
+        with span("encode", timed):
+            flats, _, n_ops = pmesh.encode_movies_mixed(
+                dist, movies, mode, rate, float(args.audio_bitrate),
+                every_n_video_frames=args.every_n_video_frames,
+                k=args.k, j=args.j, seeds=[args.seed + i for i in idxs],
+                joint=args.joint_content,
+                mesh=_group_mesh(args.mesh, len(movies), args.device))
+        encode_s = timed["encode_s"]
         for flat, i in zip(flats, idxs):
             path, fr, aud, out = ingested[i]
             levels = np.asarray(aud.levels())[:len(flat)]

@@ -36,6 +36,13 @@ take absolute step indices and segment-relative frame indices as they
 are, and a segment's records are fetched as the slice `ops[s0:s1]`.  Every
 split gives the whole-movie encode's bytes.
 
+The encodes take `into`, a dict of stage timings (`Movie.timings`), and
+open `trace.span`s in it: `encode.targets` (a segment's upload and
+`prepare_targets`), `encode.launch` (each `encode_segment` call's loop of
+body launches, one span a call) and `encode.wait` (the host's wait for the
+records and final screens); `encode_segment` adds the bodies it launches
+to `into["body_launches"]`.
+
 What the JAX package needed only on the TPU is left out: the cost slab
 per body (the kernels read the int16 store-cost table directly), the
 carried-slab strategies, step bucketing, frame and segment padding to one
@@ -54,6 +61,7 @@ from iivision_tpu_torch.ops import random as trandom
 from iivision_tpu_torch.ops.chunk_start import n_banks
 from iivision_tpu_torch.plan import (  # noqa: F401
     OP_FIELDS, MoviePlan, flatten_ops, ops_to_ticks, plan_movie)
+from iivision_tpu_torch.trace import span
 from iivision_tpu_torch.video_mode import VideoMode, require_mode
 
 
@@ -137,7 +145,7 @@ def new_state(dist, plan: MoviePlan, mode: VideoMode, seeds, B: int,
 
 
 def encode_segment(state: EncodeState, lanes_tgt_b, bytes_tgt_b, f0: int,
-                   s0: int, s1: int) -> None:
+                   s0: int, s1: int, into: Optional[dict] = None) -> None:
     """Run plan steps s0 .. s1 - 1 on `state`, in place.
 
     lanes_tgt_b (B, F, 32, 128, n_lanes) and bytes_tgt_b (B, F, 2, 32, 256)
@@ -145,7 +153,8 @@ def encode_segment(state: EncodeState, lanes_tgt_b, bytes_tgt_b, f0: int,
     the frames of these steps.  Step indices stay absolute (the nonces
     fold them), so any split into segments gives the whole-movie encode's
     records.  A segment starts on a body boundary and on a recompute step:
-    the carried diff is rebuilt from the carried screens."""
+    the carried diff is rebuilt from the carried screens.  `into`: see the
+    module docstring."""
     plan, mode = state.plan, state.mode
     dev = state.banks.device
     if lanes_tgt_b.device != dev or bytes_tgt_b.device != dev:
@@ -176,16 +185,22 @@ def encode_segment(state: EncodeState, lanes_tgt_b, bytes_tgt_b, f0: int,
     seg.zero_()
     seg[..., 0] = 32
     seg[..., 1] = pad.to(torch.uint8)[:, :, None, None]
-    for b0 in range(s0, s1, Sc):
-        frame, bank = int(sf[b0]) - f0, int(sb[b0])
-        body.encode_body(state.up, state.dw, state.banks, lanes_tgt_b,
-                         bytes_tgt_b, frame, bank, table, state.keys,
-                         state.nvalid, b0, Sc, state.ops, mode, state.joint,
-                         sub=state.dist.sub if sr[b0] else None)
+    bodies = range(s0, s1, Sc)
+    with span("encode.launch", into):
+        for b0 in bodies:
+            frame, bank = int(sf[b0]) - f0, int(sb[b0])
+            body.encode_body(state.up, state.dw, state.banks, lanes_tgt_b,
+                             bytes_tgt_b, frame, bank, table, state.keys,
+                             state.nvalid, b0, Sc, state.ops, mode,
+                             state.joint,
+                             sub=state.dist.sub if sr[b0] else None)
+    if into is not None:
+        into["body_launches"] = into.get("body_launches", 0) + len(bodies)
 
 
 def encode_movies(dist, lanes_tgt_b, bytes_tgt_b, plan: MoviePlan,
-                  mode: VideoMode, seeds, joint: bool = False):
+                  mode: VideoMode, seeds, joint: bool = False,
+                  into: Optional[dict] = None):
     """Encode B planned movies in lockstep on the targets' device: the
     one-segment call of `encode_segment`.
 
@@ -194,6 +209,7 @@ def encode_movies(dist, lanes_tgt_b, bytes_tgt_b, plan: MoviePlan,
     dist: a distance.ComputedDistance on the same device.
     seeds: B ints, or None for deterministic tie-breaks (testing).
     joint: joint content selection (`--joint_content`).
+    into: stage timings (module docstring).
     Returns (ops (B, S, K*J, 6) uint8, final main (B, 32, 256) int32, final
     aux (B, 32, 256)) as tensors on the device; for HGR the final aux is
     the main bank.
@@ -204,13 +220,13 @@ def encode_movies(dist, lanes_tgt_b, bytes_tgt_b, plan: MoviePlan,
                          % (dev, dist.device))
     state = new_state(dist, plan, mode, seeds, lanes_tgt_b.shape[0], joint)
     encode_segment(state, lanes_tgt_b, bytes_tgt_b, 0, 0,
-                   len(plan.step_frame))
+                   len(plan.step_frame), into)
     return state.result()
 
 
 def encode_movie(dist, lanes_tgt, bytes_tgt, plan: MoviePlan,
                  mode: VideoMode, seed: Optional[int] = 0,
-                 joint: bool = False):
+                 joint: bool = False, into: Optional[dict] = None):
     """Encode one planned movie on the targets' device: the B = 1 call of
     `encode_movies`.
 
@@ -220,7 +236,7 @@ def encode_movie(dist, lanes_tgt, bytes_tgt, plan: MoviePlan,
     """
     ops, main, aux = encode_movies(
         dist, lanes_tgt[None], bytes_tgt[None], plan, mode,
-        None if seed is None else [seed], joint)
+        None if seed is None else [seed], joint, into)
     return ops[0], main[0], aux[0]
 
 
@@ -251,7 +267,8 @@ def _to_device(host: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 
 def _encode_segments(dist, pull, plan: MoviePlan, mode: VideoMode,
-                     seed: Optional[int], chunk_frames: int, joint: bool):
+                     seed: Optional[int], chunk_frames: int, joint: bool,
+                     into: Optional[dict]):
     """The segment loop of the chunked and streaming encoders on `dist`'s
     device.  `pull(n)` gives the next n frames' (main, aux | None) host
     uint8 banks.  Returns (ops (S, K*J, 6) uint8 numpy, final main
@@ -277,27 +294,30 @@ def _encode_segments(dist, pull, plan: MoviePlan, mode: VideoMode,
                                pin_memory=True)
     for f0, f1, s0, s1 in ranges:
         fm, fa = pull(f1 - f0)
-        lanes, bytes_tgt = prepare_targets(
-            _to_device(fm, dev), None if fa is None else _to_device(fa, dev),
-            mode, dev)
-        encode_segment(state, lanes[None], bytes_tgt[None], f0, s0, s1)
+        with span("encode.targets", into):
+            lanes, bytes_tgt = prepare_targets(
+                _to_device(fm, dev),
+                None if fa is None else _to_device(fa, dev), mode, dev)
+        encode_segment(state, lanes[None], bytes_tgt[None], f0, s0, s1, into)
         if on_card:
             done = torch.cuda.Event()
             done.record()
             with torch.cuda.stream(fetch_stream):
                 fetch_stream.wait_event(done)
                 ops_host[s0:s1].copy_(state.ops[s0:s1], non_blocking=True)
-    main = state.banks[0, 0].cpu().numpy()
-    aux = state.banks[0, -1].cpu().numpy()
-    if on_card:
-        fetch_stream.synchronize()
+    with span("encode.wait", into):
+        main = state.banks[0, 0].cpu().numpy()
+        aux = state.banks[0, -1].cpu().numpy()
+        if on_card:
+            fetch_stream.synchronize()
     ops = (ops_host if on_card else state.ops).numpy()
     return ops.reshape(-1, plan.k * plan.j, OP_FIELDS), main, aux
 
 
 def encode_movie_chunked(dist, frames_main, frames_aux, plan: MoviePlan,
                          mode: VideoMode, seed: Optional[int] = 0,
-                         chunk_frames: int = 512, joint: bool = False):
+                         chunk_frames: int = 512, joint: bool = False,
+                         into: Optional[dict] = None):
     """Encode an arbitrarily long planned movie with bounded target memory
     on `dist`'s device (counterpart of the JAX package's
     `encode_movie_chunked`).
@@ -324,12 +344,13 @@ def encode_movie_chunked(dist, frames_main, frames_aux, plan: MoviePlan,
         return (frames_main[lo:pos],
                 None if frames_aux is None else frames_aux[lo:pos])
 
-    return _encode_segments(dist, pull, plan, mode, seed, chunk_frames, joint)
+    return _encode_segments(dist, pull, plan, mode, seed, chunk_frames, joint,
+                            into)
 
 
 def encode_movie_streaming(dist, batches, plan: MoviePlan, mode: VideoMode,
                            seed: Optional[int] = 0, chunk_frames: int = 64,
-                           joint: bool = False):
+                           joint: bool = False, into: Optional[dict] = None):
     """Encode while targets stream in, on `dist`'s device (counterpart of
     the JAX package's `encode_movie_streaming`).
 
@@ -380,7 +401,7 @@ def encode_movie_streaming(dist, batches, plan: MoviePlan, mode: VideoMode,
         return take_m, out_a
 
     ops, main, aux = _encode_segments(dist, pull_frames, plan, mode, seed,
-                                      chunk_frames, joint)
+                                      chunk_frames, joint, into)
     tgt_main = np.concatenate(acc_main) if len(acc_main) > 1 else acc_main[0]
     tgt_aux = (np.concatenate(acc_aux) if len(acc_aux) > 1 else
                acc_aux[0]) if acc_aux else None

@@ -12,9 +12,17 @@ through `encoder.encode_movie_streaming`; the rest run
 `encoder.encode_movie_chunked` when `chunk_frames` is given or past 1024
 encoded frames, else the whole-movie encode.  The final screens are kept
 for playback verification.
+
+`Movie.timings` holds the seconds of each stage (`trace.span`, perf
+counter): the top-level stages `STAGES` (`frames_s` host ingest, `audio_s`,
+`tables_s` the distance model, `levels_s` the audio levels' resample and
+copy to the host, `plan_s`, `encode_s`, `flatten_s`, `emit_s`, `write_s`
+the file's write), which `transcode` sums into `total_s`; nested in
+`encode_s`, `targets_s`, `launch_s` and `wait_s` (see `encoder`), and the
+count `body_launches`.  Under the streaming encoder the generator's pulls
+are host ingest: they count in `frames_s`, not in `encode_s`.
 """
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -26,6 +34,7 @@ from iivision_tpu_torch.palettes import Palette, require_palette
 from iivision_tpu_torch.stream.emit_fast import emit_stream_fast
 from iivision_tpu_torch.stream.framing import StreamFramer
 from iivision_tpu_torch.stream.opcodes import Header
+from iivision_tpu_torch.trace import span
 from iivision_tpu_torch.video_mode import VideoMode, require_mode
 
 
@@ -34,6 +43,10 @@ from iivision_tpu_torch.video_mode import VideoMode, require_mode
 # kept so that both packages pick the same encoder for the same input; the
 # output is identical either way.
 STREAM_MIN_FRAMES = 256
+
+# the top-level stages of `Movie.timings`, in order; `total_s` is their sum
+STAGES = ("frames", "audio", "tables", "levels", "plan", "encode", "flatten",
+          "emit", "write")
 
 
 def get_distance(mode: VideoMode, palette: Palette, model: str = "window",
@@ -86,95 +99,98 @@ class Movie:
         # joint content selection: each op's byte is chosen over all
         # content codes (--joint_content)
         self.joint_content = joint_content
-        self.timings = {}
+        self.timings = t = {}
 
-        t0 = time.time()
-        source = frames_source if frames_source is not None else filename
-        # an in-memory source with the ordered dither is ingested inside
-        # encode_ops (`self.frames` is filled in there), so that the host's
-        # quantize can overlap the device's encode
-        self._stream_source = None
-        if (isinstance(source, np.ndarray) and dither_mode == "ordered"
-                and chunk_frames is None):
-            self._stream_source = source
-            self.frames = None
-            self._n_frames_total = len(source)
-            self._input_rate = float(frame_rate or 30.0)
-        else:
-            self.frames = frames.ingest(
-                source, video_mode, palette,
-                every_n_video_frames=every_n_video_frames,
-                dither_mode=dither_mode, frame_rate=frame_rate)
-            self._n_frames_total = self.frames.n_frames_total
-            self._input_rate = self.frames.input_frame_rate
-        self.timings["frames_s"] = time.time() - t0
+        with span("frames", t):
+            source = (frames_source if frames_source is not None
+                      else filename)
+            # an in-memory source with the ordered dither is ingested
+            # inside encode_ops (`self.frames` is filled in there), so that
+            # the host's quantize can overlap the device's encode
+            self._stream_source = None
+            if (isinstance(source, np.ndarray) and dither_mode == "ordered"
+                    and chunk_frames is None):
+                self._stream_source = source
+                self.frames = None
+                self._n_frames_total = len(source)
+                self._input_rate = float(frame_rate or 30.0)
+            else:
+                self.frames = frames.ingest(
+                    source, video_mode, palette,
+                    every_n_video_frames=every_n_video_frames,
+                    dither_mode=dither_mode, frame_rate=frame_rate)
+                self._n_frames_total = self.frames.n_frames_total
+                self._input_rate = self.frames.input_frame_rate
 
-        t0 = time.time()
-        if audio_source is not None:
-            self.audio = audio_source
-        else:
-            try:
-                self.audio = audio_mod.Audio(
-                    filename, bitrate=audio_bitrate,
-                    normalization=audio_normalization, device=self.device)
-            except Exception:
-                # no audio track: silent stream covering the whole video
-                seconds = self._n_frames_total / self._input_rate
-                self.audio = audio_mod.Audio(
-                    data=np.zeros(int(seconds * audio_bitrate) + 1,
-                                  np.float32),
-                    rate=audio_bitrate, bitrate=audio_bitrate,
-                    normalization=1.0, device=self.device)
-        self.timings["audio_s"] = time.time() - t0
+        with span("audio", t):
+            if audio_source is not None:
+                self.audio = audio_source
+            else:
+                try:
+                    self.audio = audio_mod.Audio(
+                        filename, bitrate=audio_bitrate,
+                        normalization=audio_normalization,
+                        device=self.device)
+                except Exception:
+                    # no audio track: silent stream covering the whole video
+                    seconds = self._n_frames_total / self._input_rate
+                    self.audio = audio_mod.Audio(
+                        data=np.zeros(int(seconds * audio_bitrate) + 1,
+                                      np.float32),
+                        rate=audio_bitrate, bitrate=audio_bitrate,
+                        normalization=1.0, device=self.device)
 
-        t0 = time.time()
-        self.dist = dist if dist is not None else get_distance(
-            video_mode, palette, colour_model, device=self.device)
-        if self.dist.device != self.device:
-            raise ValueError("distance model on %s, movie on %s"
-                             % (self.dist.device, self.device))
-        self.timings["tables_s"] = time.time() - t0
+        with span("tables", t):
+            self.dist = dist if dist is not None else get_distance(
+                video_mode, palette, colour_model, device=self.device)
+            if self.dist.device != self.device:
+                raise ValueError("distance model on %s, movie on %s"
+                                 % (self.dist.device, self.device))
 
     def encode_ops(self):
         """Run the encoder; returns (flat ops (n, 6), audio levels (n,))."""
-        t0 = time.time()
-        levels = np.asarray(self.audio.levels())
-        plan, n_enc = encoder.plan_movie(
-            n_frames=self._n_frames_total,
-            n_audio_ticks=len(levels),
-            input_frame_rate=self._input_rate,
-            ticks_per_second=self.audio.sample_rate,
-            every_n_video_frames=self.every_n_video_frames,
-            mode=self.video_mode, k=self.k, j=self.j)
-        self.timings["plan_s"] = time.time() - t0
+        t = self.timings
+        with span("levels", t):
+            levels = np.asarray(self.audio.levels())
+        with span("plan", t):
+            plan, n_enc = encoder.plan_movie(
+                n_frames=self._n_frames_total,
+                n_audio_ticks=len(levels),
+                input_frame_rate=self._input_rate,
+                ticks_per_second=self.audio.sample_rate,
+                every_n_video_frames=self.every_n_video_frames,
+                mode=self.video_mode, k=self.k, j=self.j)
         self.plan = plan
         self.encoder_used = None  # "streaming", "chunked" or "whole"
-        enc = dict(seed=self.seed, joint=self.joint_content)
+        enc = dict(seed=self.seed, joint=self.joint_content, into=t)
 
         if self._stream_source is not None:
-            t0 = time.time()
-            gen = frames.ingest_stream_array(
-                self._stream_source, self.video_mode, self.palette,
-                every_n_video_frames=self.every_n_video_frames)
+            with span("frames", t):
+                gen = frames.ingest_stream_array(
+                    self._stream_source, self.video_mode, self.palette,
+                    every_n_video_frames=self.every_n_video_frames)
             if n_enc > STREAM_MIN_FRAMES:
                 # long movie: the host quantizes segment i + 1 while the
-                # device encodes segment i
-                ops, self.final_main, self.final_aux, tm, ta = \
-                    encoder.encode_movie_streaming(
-                        self.dist, gen, plan, self.video_mode,
-                        chunk_frames=self.stream_chunk_frames, **enc)
-                gen.close()
-                self._set_frames(tm, ta)
-                self.encoder_used = "streaming"
-                self.timings["encode_s"] = time.time() - t0
-                return encoder.flatten_ops(ops, plan), levels[:plan.n_ops]
+                # device encodes segment i; the pulls count as host ingest
+                pulled = t["frames_s"]
+                with span("encode", t):
+                    ops, self.final_main, self.final_aux, tm, ta = \
+                        encoder.encode_movie_streaming(
+                            self.dist, _pulls(gen, t), plan,
+                            self.video_mode,
+                            chunk_frames=self.stream_chunk_frames, **enc)
+                    gen.close()
+                    self._set_frames(tm, ta)
+                    self.encoder_used = "streaming"
+                t["encode_s"] -= t["frames_s"] - pulled
+                return self._flatten(ops, plan), levels[:plan.n_ops]
             # short movie: drain the generator, then encode below
-            parts = list(gen)
-            self._set_frames(
-                np.concatenate([m for m, _ in parts]),
-                np.concatenate([a for _, a in parts])
-                if self.video_mode == VideoMode.DHGR else None)
-            self.timings["frames_s"] += time.time() - t0
+            with span("frames", t):
+                parts = list(gen)
+                self._set_frames(
+                    np.concatenate([m for m, _ in parts]),
+                    np.concatenate([a for _, a in parts])
+                    if self.video_mode == VideoMode.DHGR else None)
 
         n_use = max(n_enc, 1)
         if n_use > len(self.frames.targets_main):
@@ -189,24 +205,30 @@ class Movie:
                              % (chunk,))
         if chunk is None and n_enc > 1024:
             chunk = 512  # segment long movies
-        t0 = time.time()
-        if chunk:
-            ops, self.final_main, self.final_aux = \
-                encoder.encode_movie_chunked(
-                    self.dist, tgt_main, tgt_aux, plan, self.video_mode,
-                    chunk_frames=chunk, **enc)
-            self.encoder_used = "chunked"
-        else:
-            lanes, bytes_tgt = encoder.prepare_targets(
-                tgt_main, tgt_aux, self.video_mode, self.device)
-            ops, fin_main, fin_aux = encoder.encode_movie(
-                self.dist, lanes, bytes_tgt, plan, self.video_mode, **enc)
-            ops = ops.cpu().numpy()
-            self.final_main = fin_main.cpu().numpy()
-            self.final_aux = fin_aux.cpu().numpy()
-            self.encoder_used = "whole"
-        self.timings["encode_s"] = time.time() - t0
-        return encoder.flatten_ops(ops, plan), levels[:plan.n_ops]
+        with span("encode", t):
+            if chunk:
+                ops, self.final_main, self.final_aux = \
+                    encoder.encode_movie_chunked(
+                        self.dist, tgt_main, tgt_aux, plan, self.video_mode,
+                        chunk_frames=chunk, **enc)
+                self.encoder_used = "chunked"
+            else:
+                with span("encode.targets", t):
+                    lanes, bytes_tgt = encoder.prepare_targets(
+                        tgt_main, tgt_aux, self.video_mode, self.device)
+                ops, fin_main, fin_aux = encoder.encode_movie(
+                    self.dist, lanes, bytes_tgt, plan, self.video_mode,
+                    **enc)
+                with span("encode.wait", t):
+                    ops = ops.cpu().numpy()
+                    self.final_main = fin_main.cpu().numpy()
+                    self.final_aux = fin_aux.cpu().numpy()
+                self.encoder_used = "whole"
+        return self._flatten(ops, plan), levels[:plan.n_ops]
+
+    def _flatten(self, ops, plan):
+        with span("flatten", self.timings):
+            return encoder.flatten_ops(ops, plan)
 
     def _set_frames(self, targets_main, targets_aux):
         self.frames = frames.MovieFrames(
@@ -231,16 +253,27 @@ class Movie:
     def transcode(self, out_path: str) -> dict:
         """Encode to an .a2m file; returns timing stats."""
         flat, levels = self.encode_ops()
-        t0 = time.time()
+        t = self.timings
         data = emit_stream_fast(flat, levels, self.video_mode,
-                                max_bytes_out=self.max_bytes_out)
-        with open(out_path, "wb") as f:
-            f.write(data)
-        self.timings["emit_s"] = time.time() - t0
+                                max_bytes_out=self.max_bytes_out, into=t)
+        with span("write", t):
+            with open(out_path, "wb") as f:
+                f.write(data)
         n_ops = self.plan.n_ops
         movie_seconds = n_ops / self.audio.sample_rate
-        total = sum(self.timings.values())
-        self.timings.update(
+        total = sum(t[s + "_s"] for s in STAGES)
+        t.update(
             n_ops=n_ops, movie_seconds=movie_seconds, total_s=total,
             realtime_x=movie_seconds / total if total > 0 else 0.0)
         return dict(self.timings)
+
+
+def _pulls(gen, into: dict):
+    """`gen`'s items, each pull timed as host ingest (`frames`)."""
+    while True:
+        with span("frames", into):
+            try:
+                item = next(gen)
+            except StopIteration:
+                return
+        yield item

@@ -253,10 +253,8 @@ def encode_body(up, dw, banks, lanes_tgt_b, bytes_tgt_b, frame: int,
                      else "recompute_launches")
 
 
-encode_body.launches = 0
-encode_body.joint_launches = 0
-encode_body.recompute_launches = 0
-encode_body.yiq_recompute_launches = 0
+_build.counter(encode_body, "launches", "joint_launches",
+               "recompute_launches", "yiq_recompute_launches")
 
 
 def threefry_uniform(keys: torch.Tensor, steps: torch.Tensor, k: int,
@@ -286,7 +284,7 @@ def threefry_uniform(keys: torch.Tensor, steps: torch.Tensor, k: int,
     return nonce_p, nonce_o
 
 
-threefry_uniform.launches = 0
+_build.counter(threefry_uniform)
 
 
 def nonce_plain(key: tuple, step: int, stream: int, counter: int) -> float:

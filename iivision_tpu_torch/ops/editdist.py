@@ -250,7 +250,7 @@ def pair_distance(codes_a: torch.Tensor, codes_b: torch.Tensor,
     return out
 
 
-pair_distance.launches = 0
+_build.counter(pair_distance)
 
 
 def dist_pairs_elementwise(pa: torch.Tensor, pb: torch.Tensor,
@@ -284,7 +284,7 @@ def dist_pairs_elementwise(pa: torch.Tensor, pb: torch.Tensor,
     return out
 
 
-dist_pairs_elementwise.launches = 0
+_build.counter(dist_pairs_elementwise)
 
 
 def _merged_stride(shape, stride):
@@ -364,7 +364,7 @@ def lane_distance(va: torch.Tensor, vb: torch.Tensor, mode: VideoMode,
     return out
 
 
-lane_distance.launches = 0
+_build.counter(lane_distance)
 
 
 def lane_codes(mode: VideoMode, lane: int, device) -> torch.Tensor:

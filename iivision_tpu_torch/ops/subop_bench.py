@@ -150,4 +150,4 @@ def run_kernel(up, dw, by, tb, T: int):
     return tuple(outs)
 
 
-run_kernel.launches = 0
+_build.counter(run_kernel)

@@ -25,6 +25,12 @@ shards, one per entry, which the fetch functions take as they take a
 tensor.  The JAX package's tunnel-transfer pool (`io_pool`) is not
 ported: `fetch_ops_parallel` copies each shard to the host on a thread of
 its own, which is what a mesh of cards needs.
+
+Spans (`trace.span`): `ingest` around a batch's ingest, with
+`ingest.resize`, `ingest.quantize`, `ingest.pack` and `ingest.targets` per
+chunk and `ingest.cat` for the batch's concatenation; `encode` around a
+batch's encode (the encoder's `encode.launch` inside).  A shard's spans
+open on its own thread; there is no span per shard.
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -37,6 +43,7 @@ from iivision_tpu_torch import frames as frames_mod
 from iivision_tpu_torch.ops import dither, editdist, resize
 from iivision_tpu_torch.palettes import Palette, require_palette
 from iivision_tpu_torch.screen import spec_for_mode
+from iivision_tpu_torch.trace import span
 from iivision_tpu_torch.video_mode import VideoMode, require_mode
 
 INGEST_CHUNK = 256  # frames per fused ingest step (bounds the score buffers)
@@ -178,15 +185,21 @@ def _unsharded(x, mesh):
 def ingest_chunk(rgb: torch.Tensor, mode: VideoMode, palette: Palette):
     """(C, H, W, 3) uint8 frames -> encoder targets (lanes (C, 32, 128, L)
     int32, bytes (C, 2, 32, 256) int32) on the frames' device."""
-    if rgb.shape[1:3] != (frames_mod.TARGET_H, frames_mod.TARGET_W):
-        rgb = resize.resize_batch(rgb, frames_mod.TARGET_H,
-                                  frames_mod.TARGET_W)
+    with span("ingest.resize"):
+        if rgb.shape[1:3] != (frames_mod.TARGET_H, frames_mod.TARGET_W):
+            rgb = resize.resize_batch(rgb, frames_mod.TARGET_H,
+                                      frames_mod.TARGET_W)
     if mode == VideoMode.DHGR:
-        main, aux = dither.dhgr_codes_to_memory(
-            dither.quantize_ordered(rgb, palette))
+        with span("ingest.quantize"):
+            codes = dither.quantize_ordered(rgb, palette)
+        with span("ingest.pack"):
+            main, aux = dither.dhgr_codes_to_memory(codes)
     else:
-        main, aux = dither.quantize_hgr(rgb, palette), None
-    return encoder.prepare_targets(main, aux, mode, rgb.device)
+        # HGR's quantizer packs as it goes
+        with span("ingest.quantize"):
+            main, aux = dither.quantize_hgr(rgb, palette), None
+    with span("ingest.targets"):
+        return encoder.prepare_targets(main, aux, mode, rgb.device)
 
 
 def _ingest(rgb_b: torch.Tensor, mode: VideoMode, palette: Palette):
@@ -201,8 +214,9 @@ def _ingest(rgb_b: torch.Tensor, mode: VideoMode, palette: Palette):
             ln, by = ingest_chunk(rgb_b[b, f:f + INGEST_CHUNK], mode, palette)
             lanes.append(ln)
             bytes_.append(by)
-    lanes = torch.cat(lanes)
-    bytes_ = torch.cat(bytes_)
+    with span("ingest.cat"):
+        lanes = torch.cat(lanes)
+        bytes_ = torch.cat(bytes_)
     return (lanes.reshape((B, F) + tuple(lanes.shape[1:])),
             bytes_.reshape((B, F) + tuple(bytes_.shape[1:])))
 
@@ -221,11 +235,12 @@ def ingest_movies_batch(rgb_b: torch.Tensor, mode: VideoMode,
     if not isinstance(rgb_b, torch.Tensor):
         raise TypeError("ingest_movies_batch takes a tensor on the device "
                         "to ingest on, got %s" % type(rgb_b).__name__)
-    sharded = _sharding(mesh, rgb_b)
-    if sharded is None:
-        return _ingest(_unsharded(rgb_b, mesh), mode, palette)
-    outs = _map_shards(sharded, lambda x: _ingest(x, mode, palette),
-                       [(x,) for x in shard_batch(rgb_b, sharded)])
+    with span("ingest"):
+        sharded = _sharding(mesh, rgb_b)
+        if sharded is None:
+            return _ingest(_unsharded(rgb_b, mesh), mode, palette)
+        outs = _map_shards(sharded, lambda x: _ingest(x, mode, palette),
+                           [(x,) for x in shard_batch(rgb_b, sharded)])
     lanes, bytes_ = zip(*outs)
     return lanes, bytes_
 
@@ -252,6 +267,13 @@ def encode_movies_batch(dist, lanes_tgt_b, bytes_tgt_b,
     of shards in batch order, shard i encoded on mesh entry i with its
     movies' seeds.
     """
+    with span("encode"):
+        return _encode_batch(dist, lanes_tgt_b, bytes_tgt_b, plan, mode,
+                             seeds, mesh, joint)
+
+
+def _encode_batch(dist, lanes_tgt_b, bytes_tgt_b, plan, mode, seeds, mesh,
+                  joint):
     sharded = _sharding(mesh, lanes_tgt_b, bytes_tgt_b)
     if sharded is None:
         lanes = _unsharded(lanes_tgt_b, mesh)

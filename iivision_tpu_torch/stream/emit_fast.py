@@ -14,6 +14,7 @@ from iivision_tpu_torch.sim import native
 from iivision_tpu_torch.stream import opcodes as ops_mod
 from iivision_tpu_torch.stream.opcodes import (OpcodeAddresses,
                                                default_addresses)
+from iivision_tpu_torch.trace import span
 from iivision_tpu_torch.video_mode import VideoMode, require_mode
 
 
@@ -28,12 +29,19 @@ def _addr_lut(addrs: OpcodeAddresses) -> np.ndarray:
 def emit_stream_fast(flat_ops: np.ndarray, levels: np.ndarray,
                      mode: VideoMode,
                      addrs: Optional[OpcodeAddresses] = None,
-                     max_bytes_out: Optional[int] = None) -> bytes:
+                     max_bytes_out: Optional[int] = None,
+                     into: Optional[dict] = None) -> bytes:
     """Assemble the full stream: header + ticks + ACKs + terminate + padding.
 
     flat_ops: (n, 6) int [page, content, o0..o3]; levels: (n,) in -15..16.
     max_bytes_out cuts the stream at the first opcode whose start position
-    reaches the cap."""
+    reaches the cap.  The call is the span `emit` (`trace.span`; its
+    seconds go to `into["emit_s"]` when `into` is given)."""
+    with span("emit", into):
+        return _emit(flat_ops, levels, mode, addrs, max_bytes_out)
+
+
+def _emit(flat_ops, levels, mode, addrs, max_bytes_out) -> bytes:
     require_mode(mode)
     addrs = addrs or default_addresses()
     n = len(flat_ops)
