@@ -4,6 +4,7 @@
     python3 chip_smoke.py --sweep    # the build and the body cluster sweep
     python3 chip_smoke.py --steps    # the build and recompute_steps
     python3 chip_smoke.py --variants # the recompute prologue's variants
+    python3 chip_smoke.py --ingest   # the build and the ingest kernel
 
 Builds the port's CUDA kernels from csrc/ with nvcc (one process per
 source, all at once) and checks each against its plain torch version on
@@ -44,7 +45,13 @@ the card, bit-equal:
   clusters per size and rule, where the CTAs ran (`%smid` recorded per
   CTA) and the host's time per body launch;
 - kernel C (the sub-op microbenchmark at 512 and 509 rows, T = 0, 1 and
-  100, with crafted rows).
+  100, with crafted rows);
+- the ingest kernel against the torch chain of `mesh.ingest_batch_plain`
+  (`check_ingest`): DHGR and HGR, NTSC and IIGS, 192x280, 192x140,
+  360x640 and 720x1280 sources, (B, F) = (1, 1), (3, 300) and (32, 150),
+  random frames and the benchmark's synthetic clips; a second call makes
+  no copy and runs one kernel; the batch cells' B = 32 10 s round timed,
+  kernel and chain.
 Each kernel's device time is the mean of many back-to-back launches
 between one event pair, queued behind a sleep so that the host's wrapper
 time stays outside the pair.
@@ -196,6 +203,9 @@ KERNELS = {
     "subop_bench": ("run_kernel.launches",
                     "iivision_tpu_torch/csrc/subop_bench.cu",
                     "tools/bench_subop_pallas.py:183"),
+    "ingest_batch": ("ingest_batch.launches",
+                     "iivision_tpu_torch/csrc/ingest.cu",
+                     "iivision_tpu/parallel/mesh.py:100"),
 }
 
 
@@ -229,12 +239,14 @@ def counted(path, want, fn, *args, **kw):
 def main(argv=()):
     """The smoke; argv ["--sweep"]: the build and the body kernel's
     cluster sweep alone (`body_cluster_sweep`); ["--steps"]: the build
-    and `recompute_steps` alone; ["--variants"]: `prologue_variants`."""
+    and `recompute_steps` alone; ["--variants"]: `prologue_variants`;
+    ["--ingest"]: the build and `check_ingest` alone."""
     import torch
 
-    if list(argv) not in ([], ["--sweep"], ["--steps"], ["--variants"]):
-        print("usage: chip_smoke.py [--sweep | --steps | --variants]",
-              file=sys.stderr)
+    if list(argv) not in ([], ["--sweep"], ["--steps"], ["--variants"],
+                          ["--ingest"]):
+        print("usage: chip_smoke.py [--sweep | --steps | --variants | "
+              "--ingest]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -277,6 +289,9 @@ def main(argv=()):
     if list(argv) == ["--variants"]:
         prologue_variants(os.path.dirname(os.path.abspath(__file__)))
         return 0
+    if list(argv) == ["--ingest"]:
+        check_ingest(dev, report)
+        return 0
     check_kernel_a(dev, report)
     check_lane_dist(dev, report)
     check_chunk_start(dev, report)
@@ -285,6 +300,7 @@ def main(argv=()):
     check_body(dev, report, joint=True)
     body_cluster_sweep(dev, report)
     check_kernel_c(dev, report)
+    check_ingest(dev, report)
     check_golden(dev)
     print("kernel checks done at %.1f s" % (time.time() - t_start))
 
@@ -320,9 +336,10 @@ def main(argv=()):
                  dict(colour_model="yiq")),
                 ("hgr_2s_mono", enc + ("lane_dist",), run_mono,
                  (dev, dists, hgr), {}),
-                ("bench:batch_dhgr_b32_10s_k16_j4", enc, run_bench_config,
-                 ("batch_dhgr_b32_10s_k16_j4", bench_ctx), {}),
-                ("batch_dhgr_b32_10s_k16_j4_mesh2", enc,
+                ("bench:batch_dhgr_b32_10s_k16_j4", enc + ("ingest_batch",),
+                 run_bench_config, ("batch_dhgr_b32_10s_k16_j4", bench_ctx),
+                 {}),
+                ("batch_dhgr_b32_10s_k16_j4_mesh2", enc + ("ingest_batch",),
                  lambda: run_batch_mesh(
                      dev, results.pop("bench:batch_dhgr_b32_10s_k16_j4")),
                  (), {}),
@@ -386,6 +403,7 @@ def main(argv=()):
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=totals[name])
         entry.update((k, report[name][k]) for k in keys)
+        entry.update(report[name].get("beside", {}))
         # no single PyTorch call computes any of these functions
         entry["library_ms"] = None
         kernels.append(entry)
@@ -397,15 +415,17 @@ def main(argv=()):
     return 0
 
 
-def bound(nbytes: float, ops: float = 0.0, int_ops: float = 0.0) -> dict:
+def bound(nbytes: float, ops: float = 0.0, int_ops: float = 0.0,
+          fp64_ops: float = 0.0) -> dict:
     """The least time card 0 could take: the larger of the bytes over the
     HBM rate and the operations over the card's rate for their type (`ops`
-    float32 outside the tensor cores, `int_ops` int32), on the peaks of
-    `roofline.CARD_PEAKS` (a card not in that table fails the run)."""
+    float32 and `fp64_ops` float64, both outside the tensor cores,
+    `int_ops` int32), on the peaks of `roofline.CARD_PEAKS` (a card not in
+    that table fails the run)."""
     from iivision_tpu_torch import roofline
 
     t, by = roofline.least_time(nbytes, ops, int_ops,
-                                roofline.device_peaks(0))
+                                roofline.device_peaks(0), fp64_ops)
     return dict(bound_ms=t * 1e3, bound_by=by)
 
 
@@ -1560,6 +1580,198 @@ def check_kernel_c(dev, report):
     report["subop_bench"] = dict(
         max_abs_err=worst, ms=ms[0], ms_t400=ms[1], ms_t1000=ms[2],
         slope_us=slope_us, plain_ms=plain_ms, chain_floor_ms=floor_ms, **bnd)
+
+
+# the ingest kernel's cases: source sizes, and (B, F) batches of each
+INGEST_SOURCES = ((192, 280), (192, 140), (360, 640), (720, 1280))
+INGEST_BATCHES = ((1, 1), (3, 300), (32, 150))
+INGEST_RANDOM_SHARE = 1e-6  # targets a resize half-tie may move, at most
+# the ingest kernel of each mode, as the profiler names it
+INGEST_KERNELS = {"DHGR": "encode_ingest<((anonymous namespace)::Mode)0>",
+                  "HGR": "encode_ingest<((anonymous namespace)::Mode)1>"}
+
+
+def ingest_frames(dev, content: str, B: int, F: int, h: int, w: int,
+                  seed: int):
+    """Seeded (B, F, h, w, 3) uint8 frames on the card: uniform random
+    ("random"), or the benchmark's synthetic clips ("synth",
+    `bench.synth_movies_device`)."""
+    import torch
+
+    from iivision_tpu_torch import bench
+
+    if content == "synth":
+        return bench.synth_movies_device(B, F, seed, dev, h, w)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randint(0, 256, (B, F, h, w, 3), dtype=torch.uint8,
+                         device=dev, generator=g)
+
+
+def ingest_case(dev, mode, palette, h: int, w: int, B: int, F: int,
+                content: str, seed: int) -> dict:
+    """The ingest kernel against `mesh.ingest_batch_plain` (the torch
+    chain) on the same card and frames: {"bad": lanes and bytes that
+    differ, "n": their count, "share": bad / n, "max_abs_err": the
+    largest |kernel - chain| over them}.  A case passes when no
+    value differs on the benchmark's content, and when fewer than
+    INGEST_RANDOM_SHARE do on random frames (a float64 resize sum that lies
+    on a rounding half-tie may round the other way: the chain's einsums
+    sum in cuBLAS's order, the kernel tap by tap)."""
+    import torch
+
+    from iivision_tpu_torch.ops import ingest
+    from iivision_tpu_torch.parallel import mesh
+
+    rgb = ingest_frames(dev, content, B, F, h, w, seed)
+    got = ingest.ingest_batch(rgb, mode, palette)
+    want = mesh.ingest_batch_plain(rgb, mode, palette)
+    bad = n = err = 0
+    for g, x in zip(got, want):
+        if g.shape != x.shape or g.dtype != x.dtype:
+            raise AssertionError("ingest kernel %s %s against plain %s %s"
+                                 % (g.dtype, tuple(g.shape), x.dtype,
+                                    tuple(x.shape)))
+        bad += int((g != x).sum())
+        n += g.numel()
+        err = max(err, int((g.to(torch.int64) - x).abs().max()))
+    share = bad / n
+    ok = bad == 0 if content == "synth" else share < INGEST_RANDOM_SHARE
+    return dict(bad=bad, n=n, share=share, max_abs_err=err, ok=ok)
+
+
+def ingest_copies(dev, palette, rgb, modes=None, sessions: int = 3):
+    """A second ingest_batch call on `rgb` of each of `modes` (default
+    DHGR and HGR), all in one torch.profiler session, each under torch's
+    sync debug mode "error" (a synchronising copy raises): {mode name:
+    {"launches": the change of `ingest_batch.launches` over its call,
+    "kernels": its mode's ingest kernels the profiler recorded}, "other":
+    the session's other device activities (copies, sets, other kernels)
+    by name}.  A session that recorded no device activity at all says
+    nothing and is profiled again, up to `sessions` times; if none did,
+    "kernels" and "other" are None (not measured)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from iivision_tpu_torch.ops import ingest
+    from iivision_tpu_torch.video_mode import VideoMode
+
+    modes = modes or (VideoMode.DHGR, VideoMode.HGR)
+    for mode in modes:
+        ingest.ingest_batch(rgb, mode, palette)
+    torch.cuda.synchronize()
+    out = {m.name: dict(launches=None, kernels=None) for m in modes}
+    out["other"] = None
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for mode in modes:
+                before = ingest.ingest_batch.launches
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    ingest.ingest_batch(rgb, mode, palette)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                out[mode.name]["launches"] = (ingest.ingest_batch.launches
+                                              - before)
+            torch.cuda.synchronize()
+        acts = [e.name for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        if acts:
+            for mode in modes:
+                out[mode.name]["kernels"] = sum(
+                    1 for a in acts if INGEST_KERNELS[mode.name] in a)
+            out["other"] = dict(collections.Counter(
+                a for a in acts
+                if not any(k in a for k in INGEST_KERNELS.values())))
+            break
+    return out
+
+
+def check_ingest(dev, report):
+    """The ingest kernel (csrc/ingest.cu) against the torch chain on the
+    card (`ingest_case`): DHGR and HGR, NTSC and IIGS, sources 192x280,
+    192x140, 360x640 and 720x1280, (B, F) = (1, 1), (3, 300) and (32,
+    150), random frames and the benchmark's synthetic clips.  Then a
+    second call of each mode counts one launch, runs one kernel and makes
+    no host<->device copy (`ingest_copies`), and the B = 32 10 s round of
+    the batch cells (150 frames of 192x280) is timed, kernel and chain,
+    beside its bound (`bound`): its bytes, and the float64 FMAs of its
+    nonzero taps.  The kernels line's entry holds the DHGR round, the
+    largest |kernel - chain| and share of targets that differ over every
+    case, and the HGR round beside."""
+    from iivision_tpu_torch.ops import ingest
+    from iivision_tpu_torch.palettes import Palette
+    from iivision_tpu_torch.parallel import mesh
+    from iivision_tpu_torch.video_mode import VideoMode
+
+    t0 = time.time()
+    worst = worst_err = n_cases = 0
+    seed = 17
+    for mode in (VideoMode.DHGR, VideoMode.HGR):
+        for palette in (Palette.NTSC, Palette.IIGS):
+            for h, w in INGEST_SOURCES:
+                for B, F in INGEST_BATCHES:
+                    for content in ("random", "synth"):
+                        seed += 1
+                        n_cases += 1
+                        c = ingest_case(dev, mode, palette, h, w, B, F,
+                                        content, seed)
+                        worst = max(worst, c["share"])
+                        worst_err = max(worst_err, c["max_abs_err"])
+                        if c["bad"] or not c["ok"]:
+                            print("ingest %s %s %dx%d B=%d F=%d %s: %d of "
+                                  "%d targets differ (share %.3g, largest "
+                                  "|kernel - chain| %d)" % (
+                                      mode.name, palette.name, h, w, B, F,
+                                      content, c["bad"], c["n"],
+                                      c["share"], c["max_abs_err"]))
+                        if not c["ok"]:
+                            raise AssertionError("ingest kernel differs "
+                                                 "from the torch chain")
+    print("ingest: %d cases against the torch chain, largest share of "
+          "targets that differ %.3g, largest |kernel - chain| %d, %.1f s"
+          % (n_cases, worst, worst_err, time.time() - t0))
+    B, F, h, w = 32, 150, 192, 280
+    copies = ingest_copies(dev, Palette.NTSC,
+                           ingest_frames(dev, "synth", 4, 20, h, w, 3))
+    if any(copies[m.name]["launches"] != 1
+           for m in (VideoMode.DHGR, VideoMode.HGR)):
+        raise AssertionError("a second ingest call counted %s" % copies)
+    if copies["other"] is None:
+        print("ingest: a second call of each mode counted one launch and "
+              "made no synchronising copy; the profiler recorded no device "
+              "activity in %s, so its kernels and copies were not measured"
+              % copies)
+    elif copies["other"] or any(copies[m.name]["kernels"] != 1
+                                for m in (VideoMode.DHGR, VideoMode.HGR)):
+        raise AssertionError("a second ingest call ran %s" % copies)
+    rows = {}
+    for mode in (VideoMode.DHGR, VideoMode.HGR):
+        rgb = ingest_frames(dev, "synth", B, F, h, w, 5)
+        lanes, bytes_ = ingest.ingest_batch(rgb, mode, Palette.NTSC)
+        ms = cuda_ms(lambda: ingest.ingest_batch(rgb, mode, Palette.NTSC),
+                     20)
+        plain_ms = cuda_ms(lambda: mesh.ingest_batch_plain(
+            rgb, mode, Palette.NTSC), 3)
+        c = ingest.constants(mode, Palette.NTSC, h, w)
+        fmas = B * F * (int((c["h_w"] != 0).sum()) * 3 * w
+                        + int((c["w_w"] != 0).sum()) * 3 * 192)
+        nbytes = rgb.numel() + 4 * (lanes.numel() + bytes_.numel())
+        rows[mode.name] = dict(ms=ms, plain_ms=plain_ms,
+                               **bound(nbytes, fp64_ops=2 * fmas))
+        print("ingest %s B=%d F=%d %dx%d (a 10 s round): ms=%.4f plain_ms="
+              "%.3f bound_ms=%.4f (%s: %.1f MB, %.2f G float64 FMAs) "
+              "share=%.1f%% ms_per_movie_s=%.5f; second call %s, other "
+              "device activities %s" % (
+                  mode.name, B, F, h, w, ms, plain_ms,
+                  rows[mode.name]["bound_ms"], rows[mode.name]["bound_by"],
+                  nbytes / 1e6, fmas / 1e9,
+                  100 * rows[mode.name]["bound_ms"] / ms,
+                  ms / (B * 10.0), copies[mode.name], copies["other"]))
+    report["ingest_batch"] = dict(
+        max_abs_err=worst_err, **rows["DHGR"],
+        beside=dict(max_bad_share=worst, hgr=rows["HGR"]))
 
 
 def check_golden(dev):

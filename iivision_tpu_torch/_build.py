@@ -50,6 +50,8 @@ SIGNATURES = {
                         _P, _P, _I, _P],
     "iiv_body_max_clusters": [_I, _P],
     "iiv_threefry_uniform": [_P, _I, _P, _I, _I, _I, _P, _P, _P],
+    "iiv_ingest_batch": [_P, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P, _P, _P,
+                         _P, _I, _I, _I, _P, _P, _P],
 }
 
 

@@ -4,9 +4,11 @@ iivision_tpu/parallel/mesh.py).
 The JAX package batches the whole-movie scan with `vmap` and shards the
 batch over a device mesh.  Here a batch is an axis written out: B movies
 run in lockstep through one plan (`encoder.encode_movies`), so each plan
-step is one launch sequence for all of them.  Ingest is fused on the
-device the same way: resize, quantize, pack and lane derivation, in chunks
-of at most INGEST_CHUNK frames of one movie.
+step is one launch sequence for all of them.  Ingest (resize, quantize,
+pack and lane derivation) is one launch of the ingest kernel for the
+whole batch on a card (`ops/ingest`), and on the CPU a torch chain in
+chunks of at most INGEST_CHUNK frames of one movie (`ingest_chunk`), the
+plain version the kernel is held to.
 
 A mesh is a tuple of `torch.device`s (`make_mesh`).  Movies are
 independent, so a batch shards over the mesh with no communication: axis
@@ -26,7 +28,8 @@ tensor.  The JAX package's tunnel-transfer pool (`io_pool`) is not
 ported: `fetch_ops_parallel` copies each shard to the host on a thread of
 its own, which is what a mesh of cards needs.
 
-Spans (`trace.span`): `ingest` around a batch's ingest, with
+Spans (`trace.span`): `ingest` around a batch's ingest, with, on a card,
+`ingest.kernel` around the ingest kernel's launch, and on the CPU
 `ingest.resize`, `ingest.quantize`, `ingest.pack` and `ingest.targets` per
 chunk and `ingest.cat` for the batch's concatenation; `encode` around a
 batch's encode (the encoder's `encode.launch` inside).  A shard's spans
@@ -41,6 +44,7 @@ import torch
 from iivision_tpu_torch import encoder
 from iivision_tpu_torch import frames as frames_mod
 from iivision_tpu_torch.ops import dither, editdist, resize
+from iivision_tpu_torch.ops import ingest as ingest_op
 from iivision_tpu_torch.palettes import Palette, require_palette
 from iivision_tpu_torch.screen import spec_for_mode
 from iivision_tpu_torch.trace import span
@@ -202,11 +206,13 @@ def ingest_chunk(rgb: torch.Tensor, mode: VideoMode, palette: Palette):
         return encoder.prepare_targets(main, aux, mode, rgb.device)
 
 
-def _ingest(rgb_b: torch.Tensor, mode: VideoMode, palette: Palette):
-    """Ingest (B, F, H, W, 3) frames on their device.  Each chunk holds
-    frames of one movie, from its first frame on, so a movie meets the
-    same chunk shapes (and the resize's products the same sums) whatever
-    batch or shard it is in."""
+def ingest_batch_plain(rgb_b: torch.Tensor, mode: VideoMode,
+                       palette: Palette):
+    """Ingest (B, F, H, W, 3) frames on their device by the torch chain
+    (`ingest_chunk`), chunk by chunk: the plain version of the ingest
+    kernel, on any device.  Each chunk holds frames of one movie, from its
+    first frame on, so a movie meets the same chunk shapes (and the
+    resize's products the same sums) whatever batch or shard it is in."""
     B, F = rgb_b.shape[:2]
     lanes, bytes_ = [], []
     for b in range(B):
@@ -219,6 +225,16 @@ def _ingest(rgb_b: torch.Tensor, mode: VideoMode, palette: Palette):
         bytes_ = torch.cat(bytes_)
     return (lanes.reshape((B, F) + tuple(lanes.shape[1:])),
             bytes_.reshape((B, F) + tuple(bytes_.shape[1:])))
+
+
+def _ingest(rgb_b: torch.Tensor, mode: VideoMode, palette: Palette):
+    """Ingest (B, F, H, W, 3) frames on their device: on a card one launch
+    of the ingest kernel for the whole batch (`ops/ingest.ingest_batch`),
+    elsewhere `ingest_batch_plain`."""
+    if rgb_b.device.type == "cuda":
+        with span("ingest.kernel"):
+            return ingest_op.ingest_batch(rgb_b, mode, palette)
+    return ingest_batch_plain(rgb_b, mode, palette)
 
 
 def ingest_movies_batch(rgb_b: torch.Tensor, mode: VideoMode,

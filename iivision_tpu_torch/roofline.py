@@ -19,7 +19,8 @@ nothing in the encode runs on the tensor cores, so there is no MFU here.
 - `encode_cost`: their sum over a plan, with the counts of chunk starts
   (recomputing bodies), bodies, steps and sequential sub-ops.
 - `device_peaks`: a card's HBM bytes/s, float32 operations/s outside the
-  tensor cores and int32 operations/s, by the card's name.  A card not in
+  tensor cores, int32 operations/s and float64 operations/s outside the
+  tensor cores, by the card's name.  A card not in
   `CARD_PEAKS` raises: a wrong peak would give a wrong share.
 - `report`: one measured encode against the model.
 """
@@ -50,15 +51,18 @@ class Peaks(NamedTuple):
     hbm_bytes_per_s: float
     fp32_ops_per_s: float  # outside the tensor cores
     int32_ops_per_s: float
+    fp64_ops_per_s: float  # outside the tensor cores
 
 
 # torch.cuda.get_device_name -> peaks.  NVIDIA H100 SXM5 80GB: HBM3 at
 # 3.35 TB/s and 67 TFLOP/s float32 (NVIDIA H100 Tensor Core GPU data
-# sheet); int32: 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost clock
+# sheet); int32: 64 INT32 lanes per SM x 132 SMs x 1.98 GHz boost clock,
+# float64: 64 FP64 lanes per SM, an FMA (two operations) each per cycle
 # (NVIDIA H100 Tensor Core GPU Architecture whitepaper).  The rates assume
 # the card's full 700 W power limit.
 CARD_PEAKS = {
-    "NVIDIA H100 80GB HBM3": Peaks(3.35e12, 67e12, 64 * 132 * 1.98e9),
+    "NVIDIA H100 80GB HBM3": Peaks(3.35e12, 67e12, 64 * 132 * 1.98e9,
+                                   2 * 64 * 132 * 1.98e9),
 }
 
 
@@ -81,12 +85,13 @@ def device_peaks(device) -> Peaks:
 
 
 def least_time(nbytes: float, fp32_ops: float, int32_ops: float,
-               peaks: Peaks):
+               peaks: Peaks, fp64_ops: float = 0.0):
     """(seconds, 'bytes' or 'operations'): the larger of the bytes over the
     HBM rate and the operations over the card's rate for their type."""
     t_bytes = nbytes / peaks.hbm_bytes_per_s
     t_ops = (fp32_ops / peaks.fp32_ops_per_s
-             + int32_ops / peaks.int32_ops_per_s)
+             + int32_ops / peaks.int32_ops_per_s
+             + fp64_ops / peaks.fp64_ops_per_s)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 

@@ -11,7 +11,12 @@ JAX package: within one uint8 level, with a measured share of 3.1e-6
 (192x280 -> 192x140) and 1.2e-5 (240x320 -> 192x140) of values one level
 apart, pinned at 1e-3.  The fused DHGR ingest differs from the JAX one in
 1 of 98,304 target bytes (a resize level that crossed a dither threshold);
-the HGR one in none."""
+the HGR one in none.
+
+On a card the batch ingest is one launch of csrc/ingest.cu (`ops/ingest`),
+held to the chain in tests/test_torch_ingest_kernel.py; here the kernel's
+tables, which it builds on the host, are held to what the chain uses, and
+the CPU batch ingest to the chain with no kernel launch."""
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +29,8 @@ from iivision_tpu.ops import resize as jresize
 from iivision_tpu.palettes import Palette as JPalette
 from iivision_tpu.parallel import mesh as jmesh
 from iivision_tpu.video_mode import VideoMode as JVideoMode
-from iivision_tpu_torch.ops import dither, resize
+from iivision_tpu_torch import palettes, trace
+from iivision_tpu_torch.ops import dither, ingest, resize
 from iivision_tpu_torch.palettes import Palette
 from iivision_tpu_torch.parallel import mesh
 from iivision_tpu_torch.video_mode import VideoMode
@@ -144,3 +150,78 @@ def test_ingest_refuses_host_arrays_and_meshes():
     with pytest.raises(ValueError, match="does not split"):
         mesh.ingest_movies_batch(torch.as_tensor(rgb[:1]), VideoMode.DHGR,
                                  Palette.NTSC, mesh=two)
+
+
+@pytest.mark.parametrize("h,w", [(192, 280), (192, 140), (360, 640),
+                                 (720, 1280)])
+def test_ingest_kernel_taps_rebuild_resize_matrix(h, w):
+    """The kernel's banded taps (int32 source index, float64 weight) add up,
+    entry for entry, to the float64 matrices the chain's einsums take
+    (`resize_matrix` as float32, then double); every index lies in the
+    source."""
+    c = ingest.constants(VideoMode.DHGR, Palette.NTSC, h, w)
+    for axis, n_in, n_out in (("h", h, 192), ("w", w, 140)):
+        idx, wt = c[axis + "_idx"].numpy(), c[axis + "_w"].numpy()
+        assert idx.dtype == np.int32 and wt.dtype == np.float64
+        assert idx.shape == wt.shape and idx.shape[0] == n_out
+        assert idx.min() >= 0 and idx.max() < n_in
+        dense = np.zeros((n_out, n_in))
+        np.add.at(dense, (np.repeat(np.arange(n_out), idx.shape[1]),
+                          idx.ravel()), wt.ravel())
+        want = torch.as_tensor(resize.resize_matrix(n_in, n_out)).double()
+        assert np.array_equal(dense, want.numpy())
+    assert 24 % ingest.rows_per_step(w) == 0
+
+
+@pytest.mark.parametrize("mode,palette", [(VideoMode.DHGR, Palette.NTSC),
+                                          (VideoMode.DHGR, Palette.IIGS),
+                                          (VideoMode.HGR, Palette.NTSC),
+                                          (VideoMode.HGR, Palette.IIGS)])
+def test_ingest_kernel_constants_are_the_chains(mode, palette):
+    """The kernel's Bayer thresholds tile to `_bayer_tile` at 192x140, its
+    XYZ matrix and white point are `srgb_to_lab`'s float32 values, and its
+    palette (Lab values, the -2 Lab and |p|^2 scores, the colour code of
+    each entry) is the one `quantize_ordered` / `quantize_hgr` pick from."""
+    c = ingest.constants(mode, palette, 192, 280)
+    assert torch.equal(c["bayer"].tile((25, 18))[:192, :140],
+                       dither._bayer_tile(192, 140, "cpu"))
+    m = torch.as_tensor(palettes._SRGB_TO_XYZ.T, dtype=torch.float32)
+    assert torch.equal(c["xyz"][:9].reshape(3, 3).T, m)
+    assert torch.equal(c["xyz"][9:], torch.as_tensor(
+        palettes._D65_WHITE, dtype=torch.float32))
+    codes = (list(range(16)) if mode == VideoMode.DHGR else
+             sorted(set(dither.HGR_COLOURS_P0) | set(dither.HGR_COLOURS_P1)))
+    assert c["codes"].tolist() == codes and c["codes"].dtype == torch.int32
+    lab = torch.as_tensor(dither._palette_lab(palette)[codes],
+                          dtype=torch.float32)
+    assert torch.equal(c["lab"], lab)
+    scores = ingest.palette_scores(lab)
+    assert torch.equal(scores[:3], -2.0 * lab.T)
+    assert torch.equal(scores[3], (lab ** 2).sum(dim=-1))
+
+
+def test_ingest_kernel_is_the_cards_alone(monkeypatch):
+    """On the CPU ingest_movies_batch takes the torch chain (its stage
+    spans open, `ingest.kernel` does not) and launches no ingest kernel;
+    `ingest_batch` itself refuses frames off a card."""
+    rgb = torch.as_tensor(rgb_frames((2, 2, 192, 280, 3), 7))
+    before = trace.counters()["ingest_batch.launches"]
+    opened = []
+    real = trace.span.__init__
+
+    def record(self, name, into=None):
+        opened.append(name)
+        real(self, name, into)
+
+    monkeypatch.setattr(trace.span, "__init__", record)
+    lanes, bytes_ = mesh.ingest_movies_batch(rgb, VideoMode.HGR,
+                                             Palette.NTSC)
+    monkeypatch.undo()
+    assert trace.counters()["ingest_batch.launches"] == before
+    assert "ingest.kernel" not in opened
+    assert {"ingest", "ingest.resize", "ingest.quantize", "ingest.targets",
+            "ingest.cat"} <= set(opened)
+    want = mesh.ingest_batch_plain(rgb, VideoMode.HGR, Palette.NTSC)
+    assert torch.equal(lanes, want[0]) and torch.equal(bytes_, want[1])
+    with pytest.raises(ValueError, match="card"):
+        ingest.ingest_batch(rgb, VideoMode.HGR, Palette.NTSC)

@@ -157,6 +157,9 @@ def test_device_peaks():
     p = roofline.device_peaks(H100)
     assert p.hbm_bytes_per_s == 3.35e12 and p.fp32_ops_per_s == 67e12
     assert p.int32_ops_per_s == 64 * 132 * 1.98e9
+    assert p.fp64_ops_per_s == 2 * 64 * 132 * 1.98e9
+    assert roofline.least_time(0, 0, 0, p, p.fp64_ops_per_s) == (
+        1.0, "operations")
     with pytest.raises(ValueError, match="no peaks for the card"):
         roofline.device_peaks("NVIDIA A100-SXM4-80GB")
     with pytest.raises(ValueError, match="no peaks for device cpu"):

@@ -139,7 +139,7 @@ def test_counters_delta_is_the_bodies_launched(whole):
             "encode_body.yiq_recompute_launches",
             "threefry_uniform.launches", "pair_distance.launches",
             "dist_pairs_elementwise.launches", "lane_distance.launches",
-            "run_kernel.launches"} == set(delta)
+            "run_kernel.launches", "ingest_batch.launches"} == set(delta)
     assert st["body_launches"] > 1
     assert delta == {k: 0 for k in delta}
 
