@@ -122,6 +122,9 @@ class Run:
     peak_bytes: int = 0
     card: str = ""
     trace: Optional[object] = None  # model.trace.Trace of a traced run
+    # busy device seconds of the window, in an untraced run of a cell that
+    # reports an end-to-end metric read from the device's trace
+    card_busy_s: Optional[float] = None
     # the plan's per-step arrays and shapes, for the work count
     plan: Optional[dict] = None
     encodes: int = 0  # batches (or clips) encoded in the window

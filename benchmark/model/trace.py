@@ -112,6 +112,18 @@ def busy_s(tr: Trace) -> float:
     return sum(b - a for a, b in merged(tr)) / 1e9
 
 
+def device_busy_s(events) -> Optional[float]:
+    """Busy seconds of a window profiled with the device's activities
+    alone: the union of every device activity, the profiler's mirrors of
+    host ranges left out; None when it recorded none."""
+    act = sorted((e.start_ns(), e.start_ns() + e.duration_ns(), "", None)
+                 for e in events
+                 if not str(e.device_type()).endswith("CPU")
+                 and not (e.name().startswith(SPAN_PREFIX)
+                          or e.is_user_annotation()))
+    return busy_s(Trace(0, 0, 0, device=act)) if act else None
+
+
 def idle_pct(tr: Optional[Trace]) -> Optional[float]:
     """100 x (1 - union of device activity / window); None without a
     traced device activity."""

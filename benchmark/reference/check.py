@@ -87,6 +87,10 @@ class Setting:
             every_n_video_frames=int(cfg["every_n_video_frames"]),
             mode=self.mode, k=int(cfg["k"]), j=int(cfg["j"]))
         self.dist = Distance(self.mode, self.palette, self.device)
+        # on a card the encoder's bodies replay as CUDA graphs, freed with
+        # this object
+        self.graphs = (encode.BodyGraphs() if self.device.type == "cuda"
+                       else None)
         self.seconds = defaultdict(float)
 
     @contextmanager
@@ -144,7 +148,7 @@ class Setting:
         lanes, bytes_ = encode.target_lanes(main, aux, self.mode)
         ops, fin_main, fin_aux = encode.encode_movies(
             self.dist, lanes, bytes_, self.plan, self.mode, list(seeds),
-            control)
+            control, self.graphs)
         ops = ops.cpu().numpy()
         return ([flatten_ops(o, self.plan) for o in ops],
                 fin_main.cpu().numpy(), fin_aux.cpu().numpy())

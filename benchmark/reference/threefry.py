@@ -115,7 +115,10 @@ def step_nonces(key: tuple, steps: torch.Tensor, k: int, j: int):
     `steps` (under vmap over the keys for a batch)."""
     k1, k2 = key
     skey = fold_in((k1[..., None], k2[..., None]), steps)  # (..., S) pairs
-    nonce_p = uniform(fold_in(skey, 0), (32,))
+    # the counter 0 made on the device: no copy from the host, so a CUDA
+    # graph can hold the draw
+    zero = torch.zeros((), dtype=torch.int64, device=steps.device)
+    nonce_p = uniform(fold_in(skey, zero), (32,))
     jj = torch.arange(1, j + 1, dtype=torch.int64, device=steps.device)
     okey = fold_in((skey[0][..., None], skey[1][..., None]), jj)
     nonce_o = uniform(okey, (k, 256))  # (..., S, j, k, 256)

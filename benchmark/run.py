@@ -11,9 +11,14 @@ device memory high-water mark, frees the program's state, checks the
 sampled clips against the plain reference (`reference/check.py`) and
 prints one JSON line: `correct`, `attempted`, `failed`, `metrics` (the
 cell's end-to-end metrics, or with `--trace 1` its per-layer metrics from
-a torch.profiler trace of the window), `device`, `breakdown` (traced
+a torch.profiler trace of the window; an untraced run of a cell with an
+end-to-end metric from the device's trace profiles the window's device
+activities alone), `device`, `breakdown` (traced
 runs) and, last, `checks`: each number compared beside its limit, which
-are also the last lines on standard error.
+are also the last lines on standard error.  Before them, standard error
+has the encoder each of the window's clips took (solo loops), the
+reference's seconds by stage and, traced, the share of device activity
+inside the benchmark's spans.
 
 Without a card, or with fewer cards than the cell asks for, it exits 2
 and prints no result; if `jax`, `jaxlib`, `flax` or `iivision_tpu` is
@@ -29,6 +34,7 @@ import gc  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+from collections import Counter  # noqa: E402
 
 from benchmark import harness  # noqa: E402
 
@@ -107,6 +113,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     limits = check.load_limits(tr["client"])
     rng = np.random.default_rng(seed & ((1 << 64) - 1))
     spans = harness.Spans(tracing=trace)
+    card_clock = on_card and not trace and any(
+        m["source"] == "device_trace"
+        for m in harness.metrics_of(man, workload, False))
     run = harness.Run(workload=workload, config=cfg, traffic=tr)
     client = drive.client(tr["client"])(cfg, tr, dev, rng, spans)
     try:
@@ -125,6 +134,15 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                 with record_function("bench.window"):
                     client.window(seconds, run)
                     _sync(dev)
+        elif card_clock:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                client.window(seconds, run)
+                _sync(dev)
+            run.card_busy_s = trace_mod.device_busy_s(
+                prof.profiler.kineto_results.events())
+            del prof
         else:
             client.window(seconds, run)
             _sync(dev)
@@ -177,6 +195,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
                         trace_mod.attributed_share(run.trace)))
     lines.insert(0, "reference: %s" % ", ".join(
         "%s %.3f s" % kv for kv in st.seconds.items()))
+    if run.timings:
+        lines.insert(0, "encoders: %s" % ", ".join(
+            "%s %d" % kv for kv in sorted(Counter(
+                x["encoder"] for x in run.timings).items())))
     bad = forbidden_modules()
     if bad:
         return 3, None, ["loaded after the window: %s" % ", ".join(bad)]

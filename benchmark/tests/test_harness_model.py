@@ -131,3 +131,15 @@ def test_trace_reduction():
     # 650-1000 (none)
     assert sum(gaps.values()) == pytest.approx(650e-9)
     assert gaps["ingest"] == pytest.approx(100e-9)
+
+
+def test_device_busy_of_a_device_only_profile():
+    # the device's activities alone, as a profile of those has them: the
+    # union of the kernels and the copy, the mirror of a host range left out
+    evs = [Ev("add_kernel", "CUDA", 100, 100, corr=50),
+           Ev("body_kernel", "CUDA", 400, 200, corr=51),
+           Ev("copy", "CUDA", 550, 100, corr=99),
+           Ev("bench.encode", "CUDA", 300, 300, corr=3, annotation=True),
+           Ev("cudaLaunchKernel", "CPU", 21, 2, corr=50)]
+    assert trace.device_busy_s(evs) == pytest.approx(350e-9)
+    assert trace.device_busy_s(evs[3:]) is None

@@ -148,3 +148,40 @@ def test_program_run_lends_and_puts_back():
     layer = json.loads(out[2][len("layer: "):])
     assert layer["encode.host_us_per_launch"] > 0
     assert layer["ingest.launches_per_movie"] is None
+
+
+STREAM = {"stream.frames_ms_per_movie_s": "frames_s",
+          "stream.encode_ms_per_movie_s": "encode_s"}
+
+
+@pytest.mark.parametrize("name,key", sorted(STREAM.items()))
+def test_stream_readers(name, key):
+    """The streaming encode's readers sum the streaming clips alone, over
+    their movie seconds, and find nothing without one."""
+    read = harness.reader(name)
+    whole = {"encoder": "whole", "movie_seconds": 10.0, "frames_s": 0.05,
+             "encode_s": 0.04}
+    assert read(_run()) is None
+    others = [whole, dict(whole, encoder="chunked", movie_seconds=40.0)]
+    assert read(_run(timings=others, movie_s=50.0, encodes=2)) is None
+    streamed = [dict(whole, encoder="streaming", movie_seconds=80.0,
+                     frames_s=0.4, encode_s=0.7),
+                dict(whole, encoder="streaming", movie_seconds=80.0,
+                     frames_s=0.6, encode_s=0.9)]
+    r = _run(timings=others + streamed, movie_s=210.0, encodes=4)
+    assert read(r) == pytest.approx(
+        1e3 * sum(c[key] for c in streamed) / 160.0)
+
+
+def test_batch_readers():
+    """The card's pace from an untraced run's device profile, and the
+    batch cells' copies of the per-layer readers of the solo cells."""
+    card = harness.reader("card_realtime_x")
+    assert card(_run(movie_s=20.0)) is None  # no device profile
+    assert card(_run(movie_s=20.0, card_busy_s=4.0)) == pytest.approx(5.0)
+    r = _run(movie_s=20.0, window_s=10.0, peak_bytes=2 * 10 ** 9,
+             trace=trace.from_kineto(BASE))
+    for name in ("realtime_x", "device.idle_pct", "device.peak_GB"):
+        assert harness.reader(name + ".batch")(r) == \
+            pytest.approx(harness.reader(name)(r))
+        assert harness.reader(name + ".batch")(_run()) is None

@@ -1,6 +1,10 @@
 """The plain reference agrees with the port's CPU path on a few frames of
 each configuration: ingest on both paths, the levels, the encoder's ops
-and final screens, the stream."""
+and final screens, the stream.  The reference's graph path (its chunk
+bodies replayed as CUDA graphs) gives the eager loop's ops and final
+screens byte for byte."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -9,6 +13,7 @@ import torch
 from benchmark import harness
 from benchmark.gen import clips as gen
 from benchmark.reference import audio, check, encode, ingest
+from benchmark.reference.distance import Distance
 from benchmark.reference.palettes import Palette as RP
 from benchmark.reference.plan import flatten_ops, plan_movie
 from benchmark.reference.stream import frame_stream
@@ -122,3 +127,59 @@ def test_control_is_lower_precision_only():
     flat = np.zeros((2, 10, 10, 3), np.uint8)
     assert np.array_equal(ingest.resize_host(flat, 10, 5, True),
                           ingest.resize_host(flat, 10, 5))
+
+
+def _graph_case(mode, B, device):
+    """A few encoded frames of B movies with random targets, and a plan
+    of several chunk bodies with full, partial and empty steps (HGR's plan
+    has no empty step at k=16 j=4: the last step of its second body is
+    emptied)."""
+    F_src = 8
+    plan, _ = plan_movie(F_src, F_src * 14700 // 30, 30.0, 14700.0, 2,
+                         RV[mode], 16, 4)
+    nv = np.array(plan.step_nvalid)
+    if mode == "HGR":
+        nv[2 * plan.chunk_steps - 1] = 0
+        plan = dataclasses.replace(plan, step_nvalid=nv)
+    assert len(nv) >= 2 * plan.chunk_steps
+    assert (nv == 64).any() and ((nv > 0) & (nv < 64)).any()
+    assert (nv == 0).any()
+    g = torch.Generator(device=device).manual_seed(17 + B)
+    F = int(np.max(plan.step_frame)) + 1
+    main, aux = (torch.randint(0, 256, (B, F, 32, 256), generator=g,
+                               device=device, dtype=torch.uint8)
+                 for _ in range(2))
+    lanes, by = encode.target_lanes(main, aux, RV[mode])
+    seeds = [2 ** 31 - 1 - b for b in range(B)]
+    return Distance(RV[mode], RP.NTSC, device), lanes, by, plan, seeds
+
+
+def _graph_path_equals_eager(mode, B, device, graphs):
+    dist, lanes, by, plan, seeds = _graph_case(mode, B, device)
+    for control in (False, True):
+        want = encode.encode_movies(dist, lanes, by, plan, RV[mode], seeds,
+                                    control)
+        for _ in range(2):  # captures, then replays only
+            got = encode.encode_movies(dist, lanes, by, plan, RV[mode],
+                                       seeds, control, graphs)
+            for w, x in zip(want, got):
+                assert torch.equal(w, x)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_graph_loop_equals_eager(mode, monkeypatch):
+    """The graph path's static buffers, copies and record copy-out on the
+    CPU, with each body run where a card would capture or replay it."""
+    monkeypatch.setattr(encode.BodyGraphs, "_run",
+                        lambda self, key, fn: fn())
+    _graph_path_equals_eager(mode, 2, torch.device("cpu"),
+                             encode.BodyGraphs())
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("B", (2, 32))
+@pytest.mark.parametrize("mode", MODES)
+def test_graph_path_equals_eager(card, mode, B):
+    graphs = encode.BodyGraphs()
+    _graph_path_equals_eager(mode, B, card, graphs)
+    assert graphs._graphs  # the bodies did run as graphs

@@ -22,6 +22,10 @@ MAN = harness.manifest()
 CELLS = [w["name"] for w in MAN["workloads"]]
 
 
+STREAM_READERS = ("stream.frames_ms_per_movie_s",
+                  "stream.encode_ms_per_movie_s")
+
+
 def _tiny(cell):
     return TINY[harness.traffic_of(harness.cell(MAN, cell))["client"]]
 
@@ -39,8 +43,11 @@ def test_sound_run_is_correct(cell):
     assert out["correct"] is True and out["failed"] == 0
     assert list(out)[-1] == "checks"
     assert lines[-1].startswith("check failed_clips")
-    names = {m["name"] for m in harness.metrics_of(MAN, cell, False)}
-    assert set(out["metrics"]) == names  # every end-to-end metric read
+    e2e = harness.metrics_of(MAN, cell, False)
+    # every end-to-end metric read but those from the device's trace,
+    # which a run on the CPU has not (test_short_run_on_card reads them)
+    assert set(out["metrics"]) == {m["name"] for m in e2e
+                                   if m["source"] != "device_trace"}
     for v in out["checks"].values():
         assert v["value"] <= v["limit"]
 
@@ -51,6 +58,26 @@ def test_traced_run_reads_layer_metrics():
     assert "host_ingest.ms_per_movie_s" in out["metrics"]
     assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
     assert any(ln.startswith("trace:") for ln in lines)
+
+
+def test_traced_long_clip_run_reads_the_streaming_encoder(monkeypatch):
+    """The long-clip cell with the program's streaming threshold lowered
+    to its tiny clips: every clip takes the streaming encoder, as every 80 s
+    clip does at the cell's size, the run is correct and the streaming
+    readers read."""
+    from iivision_tpu_torch import movie
+
+    monkeypatch.setattr(movie, "STREAM_MIN_FRAMES", 4)
+    code, line, lines = run.run_cell(
+        "dhgr_solo_80s", 2 ** 31 + 5, 0.3, True, on_card=False,
+        traffic_override=dict(_tiny("dhgr_solo_80s"), clip_seconds=0.1))
+    assert code == 0, lines
+    out = json.loads(line)
+    assert out["correct"] is True
+    enc = [ln for ln in lines if ln.startswith("encoders:")]
+    assert len(enc) == 1 and enc[0].split()[1::2] == ["streaming"], enc
+    for name in STREAM_READERS:
+        assert out["metrics"][name]["value"] > 0
 
 
 def test_a_new_client_file_is_found_by_name(tmp_path, monkeypatch):
@@ -151,7 +178,11 @@ def test_control_fails_at_cell_size(card, cell):
 @pytest.mark.card
 @pytest.mark.parametrize("cell", CELLS)
 def test_short_run_on_card(card, cell):
-    code, line, lines = run.run_cell(cell, 2 ** 31 + 21, 3.0, False)
+    # a clip of `copies` copies takes about as many times as long: the
+    # window still reaches the sampled clips
+    copies = harness.traffic_of(harness.cell(MAN, cell)).get("copies", 1)
+    code, line, lines = run.run_cell(cell, 2 ** 31 + 21, 3.0 * copies,
+                                     False)
     assert code == 0, lines
     out = json.loads(line)
     assert out["correct"] is True
