@@ -2,15 +2,16 @@
 synthesis moved into set-up and each movie's own sound).
 
 Set-up makes `pool` distinct batches of `batch` clips of `clip_seconds` on
-the device (only the frames the plan encodes), each clip with its own
-tone, and the program's normalization of each tone.  The window cycles
-the pool, one client, closed loop: the main thread queues round r + 1
-(`mesh.ingest_movies_batch`, each movie's device audio levels,
-`mesh.encode_movies_batch`, then `mesh.fetch_ops_parallel_future`, the
-port's compaction and copy of the records on side streams, and the levels'
-copy to pinned host memory on a side stream) while one worker thread waits
-for round r's records and levels and emits its streams with
-`emit_stream_fast`.  Every round gets fresh seeds.
+the device (only the frames the plan encodes, at the configuration's
+source size), each clip with its own tone, and the program's normalization
+of each tone.  The window cycles the pool, one client, closed loop: the
+main thread queues round r + 1 (`mesh.ingest_movies_batch`, each movie's
+device audio levels, `mesh.encode_movies_batch`, then
+`mesh.fetch_ops_parallel_future`, the port's compaction and copy of the
+records on side streams, and the levels' copy to pinned host memory on a
+side stream) while one worker thread waits for round r's records and
+levels and emits its streams with `emit_stream_fast`.  Every round gets
+fresh seeds.
 """
 
 import time
@@ -25,6 +26,25 @@ from benchmark.reference.check import ClipIn, ClipOut
 
 
 class Client:
+    # a run's traffic at the tests' tiny sizes on the CPU
+    TINY = dict(clip_seconds=0.2, batch=2, pool=1, sample_span=1,
+                sample_rounds=1, sample_movies=2)
+
+    @staticmethod
+    def control_clips(cfg: dict, tr: dict, rng: np.random.Generator,
+                      device) -> list:
+        """As many clips as a run checks, made by this loop's generator
+        from `rng`, for the control."""
+        n_frames = int(round(tr["clip_seconds"] * float(cfg["source_fps"])))
+        n = int(tr["sample_rounds"]) * int(tr["sample_movies"])
+        F = len(range(0, n_frames, int(cfg["every_n_video_frames"])))
+        rgb = gen.synth_movies_device(gen.phases(rng, n), F, device,
+                                      *gen.source_size(cfg))
+        waves = drive.waves(rng, cfg, tr["clip_seconds"], n)
+        base = int(rng.integers(1, 1 << 30))
+        return [ClipIn(rgb[i], waves[i], base + i, n_frames)
+                for i in range(n)]
+
     def __init__(self, cfg: dict, tr: dict, dev: torch.device,
                  rng: np.random.Generator, spans):
         from iivision_tpu_torch import audio as audio_mod
@@ -55,13 +75,15 @@ class Client:
             input_frame_rate=fps, ticks_per_second=bitrate,
             every_n_video_frames=every, mode=self.mode, k=int(cfg["k"]),
             j=int(cfg["j"]))
+        self.n_frames = n_frames
         self.F = len(range(0, n_frames, every))
         self.n_ops = self.plan.n_ops
         self.movie_s = self.n_ops / bitrate
         self.plan_info = drive.plan_info(self.plan, self.F)
         self.wave_dev = torch.as_tensor(self.waves, device=dev)
         ph = gen.phases(rng, P * B).reshape(P, B)
-        self.pool = [gen.synth_movies_device(ph[p], self.F, dev)
+        self.pool = [gen.synth_movies_device(ph[p], self.F, dev,
+                                             *gen.source_size(cfg))
                      for p in range(P)]
         # seeds base + r * B + b for round r, movie b; the warm-up's below
         self.base = int(rng.integers(B, 1 << 30))
@@ -167,7 +189,7 @@ class Client:
             for b in movies:
                 by = k["bytes"][b].to(torch.uint8).cpu().numpy()
                 ins.append(ClipIn(src[b], self.waves[self._clip(r, b)],
-                                  k["seed0"] + b))
+                                  k["seed0"] + b, self.n_frames))
                 outs.append(ClipOut(
                     (by[:, 0], by[:, 1]), k["levels"][b], k["streams"][b],
                     (k["main"][b].cpu().numpy(), k["aux"][b].cpu().numpy())))

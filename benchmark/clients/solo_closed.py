@@ -1,8 +1,8 @@
-"""The clip maker's loop.  Set-up makes `pool` clips on the host, each
-`copies` rolled copies of a `clip_seconds` clip with a tone of its own.
-One client, closed loop: `Movie(frames_source=..., audio_source=...)
-.transcode` of the next clip with a fresh seed, to one file under the
-temporary directory.
+"""The clip maker's loop.  Set-up makes `pool` clips on the host at the
+configuration's source size, each `copies` rolled copies of a
+`clip_seconds` clip with a tone of its own.  One client, closed loop:
+`Movie(frames_source=..., audio_source=...).transcode` of the next clip
+with a fresh seed, to one file under the temporary directory.
 """
 
 import os
@@ -18,6 +18,26 @@ from benchmark.reference.check import ClipIn, ClipOut
 
 
 class Client:
+    # a run's traffic at the tests' tiny sizes on the CPU
+    TINY = dict(clip_seconds=0.2, pool=2, sample_span=1, sample_clips=1)
+
+    @staticmethod
+    def control_clips(cfg: dict, tr: dict, rng: np.random.Generator,
+                      device) -> list:
+        """As many clips as a run checks, made by this loop's generator
+        from `rng`, for the control."""
+        n_frames = int(round(tr["clip_seconds"] * float(cfg["source_fps"])))
+        copies = int(tr.get("copies", 1))
+        n = int(tr["sample_clips"])
+        rgb = gen.synth_movies_device(gen.phases(rng, n), n_frames, device,
+                                      *gen.source_size(cfg)).cpu().numpy()
+        frames = [gen.rolled(rgb[i], copies) for i in range(n)]
+        waves = drive.waves(rng, cfg, tr["clip_seconds"] * copies, n)
+        base = int(rng.integers(1, 1 << 30))
+        every = int(cfg["every_n_video_frames"])
+        return [ClipIn(f[::every], w, base + i, len(f))
+                for i, (f, w) in enumerate(zip(frames, waves))]
+
     def __init__(self, cfg: dict, tr: dict, dev: torch.device,
                  rng: np.random.Generator, spans):
         from iivision_tpu_torch import audio as audio_mod
@@ -36,7 +56,8 @@ class Client:
                                  cfg["colour_model"], device=dev)
         P = int(tr["pool"])
         ph = gen.phases(rng, P)
-        src = gen.synth_movies_device(ph, n_frames, dev).cpu().numpy()
+        src = gen.synth_movies_device(ph, n_frames, dev,
+                                      *gen.source_size(cfg)).cpu().numpy()
         self.pool = [gen.rolled(src[p], copies) for p in range(P)]
         self.waves = drive.waves(rng, cfg, tr["clip_seconds"] * copies, P)
         self.base = int(rng.integers(1, 1 << 30))
@@ -109,7 +130,7 @@ class Client:
                 raise RuntimeError("sampled clip %d did not run" % i)
             p = i % len(self.pool)
             ins.append(ClipIn(self.pool[p][::self.every], self.waves[p],
-                              self.base + i))
+                              self.base + i, len(self.pool[p])))
             outs.append(self.kept.pop(i))
         return ins, outs
 

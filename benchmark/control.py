@@ -19,33 +19,16 @@ import numpy as np
 import torch
 
 from benchmark import drive, harness
-from benchmark.gen import clips as gen
 from benchmark.reference import check
 
 
 def sample_clips(cfg: dict, tr: dict, seed: int, device):
     """As many clips as a run of the cell checks, made from `seed` by the
-    cell's generator: ClipIns with frames already at every encoded
-    frame."""
+    generator of the cell's client (its `Client.control_clips`): ClipIns
+    with frames already at every encoded frame, each with its own
+    length."""
     rng = np.random.default_rng(seed & ((1 << 64) - 1))
-    fps = float(cfg["source_fps"])
-    every = int(cfg["every_n_video_frames"])
-    copies = int(tr.get("copies", 1))
-    n_frames = int(round(tr["clip_seconds"] * fps))
-    if tr["client"] == "batch_pipelined":
-        n = int(tr["sample_rounds"]) * int(tr["sample_movies"])
-        F = len(range(0, n_frames, every))
-        rgb = gen.synth_movies_device(gen.phases(rng, n), F, device)
-        frames = [rgb[i] for i in range(n)]
-    else:
-        n = int(tr["sample_clips"])
-        rgb = gen.synth_movies_device(gen.phases(rng, n), n_frames,
-                                      device).cpu().numpy()
-        frames = [gen.rolled(rgb[i], copies)[::every] for i in range(n)]
-    waves = drive.waves(rng, cfg, tr["clip_seconds"] * copies, n)
-    base = int(rng.integers(1, 1 << 30))
-    return [check.ClipIn(f, w, base + i)
-            for i, (f, w) in enumerate(zip(frames, waves))]
+    return drive.client(tr["client"]).control_clips(cfg, tr, rng, device)
 
 
 def control_numbers(workload: str, seed: int, device,
@@ -55,9 +38,7 @@ def control_numbers(workload: str, seed: int, device,
     cfg = harness.config_of(man, w)
     tr = dict(harness.traffic_of(w), **(traffic_override or {}))
     clips = sample_clips(cfg, tr, seed, device)
-    n_src = int(round(tr["clip_seconds"] * tr.get("copies", 1)
-                      * float(cfg["source_fps"])))
-    st = check.Setting(cfg, tr["ingest"], n_src, len(clips[0].wave), device)
+    st = check.Setting(cfg, tr["ingest"], device)
     limits = check.load_limits(tr["client"])
     numbers = check.judge(st, clips, check.control_outputs(st, clips),
                           limits)

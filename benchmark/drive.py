@@ -12,7 +12,12 @@ counted in set-up), `window(seconds, run)` (the measured window: it counts
 for solo loops each clip's wall time), `samples()` (the `ClipIn` and
 `ClipOut` of the clips that the run's generator drew for the check),
 `release()` (the program's state dropped, the inputs kept) and `close()`.
-`plan_info` holds the plan's per-step arrays for the work count.
+`plan_info` holds the plan's per-step arrays for the work count.  The
+class also declares `TINY`, the traffic parameters of a run at the
+tests' tiny sizes on the CPU, and `control_clips(cfg, traffic, rng,
+device)`, the clips a run checks made from `rng` for the control
+(`benchmark.control`), so that a new loop needs no edit to a test or to
+the control.
 """
 
 import importlib.util

@@ -2,19 +2,25 @@
 (copied from iivision_tpu_torch/bench.py `synth_movies_device` and `tone`;
 the phases, and each clip's tone, come from the run's seed).
 
-A clip is a moving RGB pattern at the 280x192 source size: red a sine
-along x travelling in time, green a sine along y, blue a cosine along the
-diagonal, each shifted by the clip's phase.  Every phase gives another
-picture and the same amount of work, since the encoder's schedule depends
-only on the clip's length.  A clip's sound is a sine of its own frequency
-and phase (`tones`); every clip's wave has the same length, so the same
-audio work.
+A clip is a moving RGB pattern at the configuration's source size
+(280x192 by default): red a sine along x travelling in time, green a sine
+along y, blue a cosine along the diagonal, each shifted by the clip's
+phase.  Every phase gives another picture and the same amount of work,
+since the encoder's schedule depends only on the clip's length.  A long
+clip is rolled copies of a short pattern (`rolled`, `rolled_encoded`).  A
+clip's sound is a sine of its own frequency and phase (`tones`); clips of
+one length get waves of one length, so the same audio work.
 """
 
 import numpy as np
 import torch
 
 SRC_H, SRC_W = 192, 280
+
+
+def source_size(cfg: dict) -> tuple:
+    """(height, width) of a configuration's source frames."""
+    return int(cfg["source_height"]), int(cfg["source_width"])
 
 
 def phases(rng: np.random.Generator, n: int) -> np.ndarray:
@@ -49,6 +55,21 @@ def rolled(clip: np.ndarray, copies: int) -> np.ndarray:
         return clip
     return np.concatenate([np.roll(clip, 35 * i + 17, axis=2)
                            for i in range(copies)])
+
+
+def rolled_encoded(pattern: np.ndarray, n: int, every: int) -> np.ndarray:
+    """`rolled(pattern, copies)[:n][::every]`, with as many copies as n
+    frames need, made without the frames that every-n-th skipping drops."""
+    P = len(pattern)
+    copies = -(-n // P)
+    src = np.arange(0, n, every)
+    copy, idx = np.divmod(src, P)
+    out = np.empty((len(src),) + pattern.shape[1:], np.uint8)
+    for c in range(copies):
+        sel = copy == c
+        out[sel] = (pattern[idx[sel]] if copies == 1 else
+                    np.roll(pattern[idx[sel]], 35 * c + 17, axis=2))
+    return out
 
 
 def tone(seconds: float, bitrate: int, freq: float) -> np.ndarray:

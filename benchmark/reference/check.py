@@ -16,11 +16,19 @@ are compared on their own, the reference frames the stream with the
 judged side's levels; where not, with its own, so that the stream holds
 them to the reference.
 
+Each clip is encoded under its own plan, the one its source frame count
+and its ticks give, with no padding: clips that share a plan are encoded
+together in one batch, and a clip of another length in its own.  So the
+stream a clip is held to does not depend on which clips shared its batch
+in the program (a batch of mixed lengths pads every movie to the
+longest).
+
 Numbers (a client's limits file names those it compares):
 `targets_bad_share` (target bytes that differ, over all),
 `levels_bad_share` (ticks whose level differs), `stream_bad_bytes` (stream
 bytes that differ, plus any difference in length) and `finals_bad_bytes`
-(final screen bytes that differ).
+(final screen bytes that differ; a client whose program keeps no final
+screens leaves it out).
 
 `control_outputs` is the control: the reference in the program's place,
 one precision step below what the configuration states (`control=True`
@@ -42,7 +50,7 @@ import torch
 from benchmark.reference import audio, encode, ingest
 from benchmark.reference.distance import Distance
 from benchmark.reference.palettes import Palette
-from benchmark.reference.plan import flatten_ops, plan_movie
+from benchmark.reference.plan import MoviePlan, flatten_ops, plan_movie
 from benchmark.reference.stream import frame_stream
 from benchmark.reference.video_mode import VideoMode
 
@@ -53,11 +61,14 @@ LIMITS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 @dataclass
 class ClipIn:
     """What both sides were handed: encoded frames (F, H, W, 3) uint8 (a
-    tensor on the device for the batch path, a numpy array for the solo
-    path), the samples at the tick rate and the encoder's seed."""
+    tensor on the device for the device ingest path, a numpy array for the
+    host path), the samples at the tick rate, the encoder's seed and the
+    source's frame count before every-n-th skipping, which with the ticks
+    gives the clip's own plan."""
     rgb: object
     wave: np.ndarray
     seed: int
+    n_source: int
 
 
 @dataclass
@@ -65,23 +76,21 @@ class ClipOut:
     targets: tuple  # (main, aux) (F, 32, 256) uint8 numpy; aux main for HGR
     levels: np.ndarray  # (n_ops,) int32
     stream: bytes
-    finals: tuple  # (main, aux) (32, 256) numpy
+    finals: Optional[tuple]  # (main, aux) (32, 256) numpy, or None
 
 
 class Setting:
     """One configuration's reference on one ingest path ("device" or
-    "host"): mode, palette, plan and distance model, on `device`;
-    `seconds` sums the wall time of each stage."""
+    "host"): mode, palette, each clip's plan and the distance model, on
+    `device`; `seconds` sums the wall time of each stage."""
 
-    def __init__(self, cfg: dict, ingest_path: str, n_source_frames: int,
-                 n_ticks: int, device):
+    def __init__(self, cfg: dict, ingest_path: str, device):
         self.mode = VideoMode[cfg["video_mode"]]
         self.palette = Palette[cfg["palette"]]
         self.path = ingest_path
         self.bitrate = int(cfg["audio_bitrate"])
         self.device = torch.device(device)
-        self.plan, _ = plan_movie(
-            n_frames=n_source_frames, n_audio_ticks=n_ticks,
+        self._plan_args = dict(
             input_frame_rate=float(cfg["source_fps"]),
             ticks_per_second=float(self.bitrate),
             every_n_video_frames=int(cfg["every_n_video_frames"]),
@@ -92,6 +101,11 @@ class Setting:
         self.graphs = (encode.BodyGraphs() if self.device.type == "cuda"
                        else None)
         self.seconds = defaultdict(float)
+
+    def plan(self, clip: ClipIn) -> MoviePlan:
+        """The clip's own plan (memoized by `plan_movie`)."""
+        return plan_movie(n_frames=clip.n_source,
+                          n_audio_ticks=len(clip.wave), **self._plan_args)[0]
 
     @contextmanager
     def _timed(self, stage: str):
@@ -126,32 +140,50 @@ class Setting:
 
     def _levels(self, clip: ClipIn, control: bool) -> np.ndarray:
         norm = audio.normalization(clip.wave, self.bitrate, self.bitrate)
-        n = self.plan.n_ops
+        n = self.plan(clip).n_ops
         if self.path == "device":
             x = torch.as_tensor(np.asarray(clip.wave, np.float32),
                                 device=self.device)
             return audio.levels_device(x, norm, control)[:n].cpu().numpy()
         return audio.levels_host(clip.wave, norm, control)[:n]
 
-    def encode(self, targets: List[tuple], seeds, control: bool = False):
-        """Streams' ops and final screens of movies encoded together from
-        their target banks: ([flat ops (n_ops, 6)], main (B, 32, 256),
-        aux)."""
+    def encode(self, targets: List[tuple], seeds, plan: MoviePlan,
+               control: bool = False):
+        """Streams' ops and final screens of movies of one plan encoded
+        together from their target banks: ([flat ops (n_ops, 6)], main
+        (B, 32, 256), aux)."""
         with self._timed("encode"):
-            return self._encode(targets, seeds, control)
+            return self._encode(targets, seeds, plan, control)
 
-    def _encode(self, targets: List[tuple], seeds, control: bool):
+    def _encode(self, targets: List[tuple], seeds, plan: MoviePlan,
+                control: bool):
         main = torch.as_tensor(np.stack([t[0] for t in targets]),
                                device=self.device)
         aux = torch.as_tensor(np.stack([t[1] for t in targets]),
                               device=self.device)
         lanes, bytes_ = encode.target_lanes(main, aux, self.mode)
         ops, fin_main, fin_aux = encode.encode_movies(
-            self.dist, lanes, bytes_, self.plan, self.mode, list(seeds),
+            self.dist, lanes, bytes_, plan, self.mode, list(seeds),
             control, self.graphs)
         ops = ops.cpu().numpy()
-        return ([flatten_ops(o, self.plan) for o in ops],
+        return ([flatten_ops(o, plan) for o in ops],
                 fin_main.cpu().numpy(), fin_aux.cpu().numpy())
+
+    def encode_each(self, clips: List[ClipIn], targets: List[tuple],
+                    control: bool = False) -> list:
+        """Each clip's (flat ops, final main, final aux) under its own
+        plan: the clips of one plan encoded together, in their order."""
+        groups = defaultdict(list)
+        for i, c in enumerate(clips):
+            groups[(c.n_source, len(c.wave))].append(i)
+        out = [None] * len(clips)
+        for idx in groups.values():
+            flats, main, aux = self.encode(
+                [targets[i] for i in idx], [clips[i].seed for i in idx],
+                self.plan(clips[idx[0]]), control)
+            for n, i in enumerate(idx):
+                out[i] = (flats[n], main[n], aux[n])
+        return out
 
     def stream(self, flat: np.ndarray, levels: np.ndarray) -> bytes:
         with self._timed("stream"):
@@ -162,9 +194,9 @@ def control_outputs(st: Setting, clips: List[ClipIn]) -> List[ClipOut]:
     """The control in the program's place, one precision step down."""
     targets = st.targets(clips, control=True)
     levels = [st.levels(c, control=True) for c in clips]
-    flats, main, aux = st.encode(targets, [c.seed for c in clips], True)
-    return [ClipOut(t, lv, st.stream(f, lv), (main[i], aux[i]))
-            for i, (t, lv, f) in enumerate(zip(targets, levels, flats))]
+    encoded = st.encode_each(clips, targets, True)
+    return [ClipOut(t, lv, st.stream(f, lv), (main, aux))
+            for t, lv, (f, main, aux) in zip(targets, levels, encoded)]
 
 
 def _bytes_differ(a: bytes, b: bytes) -> int:
@@ -196,12 +228,13 @@ def judge(st: Setting, clips: List[ClipIn], outs: List[ClipOut],
             else lv.size
         tot_l += lv.size
         levels.append(got if "levels_bad_share" in numbers else lv)
-    flats, main, aux = st.encode(sources, [c.seed for c in clips])
     bad_s = bad_f = 0
-    for i, o in enumerate(outs):
-        bad_s += _bytes_differ(o.stream, st.stream(flats[i], levels[i]))
-        for got, want in zip(o.finals, (main[i], aux[i])[:n_banks]):
-            bad_f += int((np.asarray(got) != want).sum())
+    for o, lv, (flat, main, aux) in zip(outs, levels,
+                                        st.encode_each(clips, sources)):
+        bad_s += _bytes_differ(o.stream, st.stream(flat, lv))
+        if "finals_bad_bytes" in numbers:
+            for got, want in zip(o.finals, (main, aux)[:n_banks]):
+                bad_f += int((np.asarray(got) != want).sum())
     out = {"targets_bad_share": bad_t / max(tot_t, 1),
            "levels_bad_share": bad_l / max(tot_l, 1),
            "stream_bad_bytes": bad_s, "finals_bad_bytes": bad_f}

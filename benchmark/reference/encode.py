@@ -207,8 +207,9 @@ class BodyGraphs:
     graph as device tensors, and the plan's empty steps stay out of it, as
     in the eager loop.  A body's live steps are a prefix of it (the plan
     pads chunk tails with empty steps), so one copy takes out its
-    records.  One object serves one distance model and plan; its graphs
-    and buffers go with it."""
+    records.  One object serves one distance model and any plan: a graph
+    reads the plan's steps, `nvalid` and frame from its buffers; its
+    graphs and buffers go with it."""
 
     def __init__(self):
         self._graphs = {}

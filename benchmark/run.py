@@ -160,9 +160,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
-        n_src = int(round(tr["clip_seconds"] * tr.get("copies", 1)
-                          * float(cfg["source_fps"])))
-        st = check.Setting(cfg, tr["ingest"], n_src, len(ins[0].wave), dev)
+        st = check.Setting(cfg, tr["ingest"], dev)
         numbers = check.judge(st, ins, outs, limits)
     finally:
         client.close()

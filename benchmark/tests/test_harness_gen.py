@@ -2,6 +2,7 @@
 another."""
 
 import numpy as np
+import pytest
 import torch
 
 from benchmark.control import sample_clips
@@ -36,6 +37,16 @@ def test_rolled_and_tone():
     assert np.array_equal(t, gen.tone(0.5, 14700, 440.0))
 
 
+def test_rolled_encoded_is_rolled_then_skipped():
+    pattern = np.random.default_rng(4).integers(
+        0, 256, (5, 3, 40, 3), dtype=np.uint8)
+    for n in (3, 5, 7, 12, 13):
+        for every in (1, 2, 3):
+            want = gen.rolled(pattern, -(-n // 5))[:n][::every]
+            assert np.array_equal(gen.rolled_encoded(pattern, n, every),
+                                  want)
+
+
 def test_tones_per_seed():
     a = gen.tones(np.random.default_rng(2 ** 33 + 1), 4, 0.5, 14700,
                   (220, 880))
@@ -49,12 +60,14 @@ def test_tones_per_seed():
     assert np.abs(a).max() <= 16000
 
 
-def test_control_clips_per_seed():
+def test_control_clips_per_seed(mixed_cell):
     man = harness.manifest()
-    for name in ("dhgr_batch32_10s", "dhgr_solo_10s"):
+    for name, tiny in (("dhgr_batch32_10s", dict(clip_seconds=0.2)),
+                       ("dhgr_solo_10s", dict(clip_seconds=0.2)),
+                       (mixed_cell, {})):
         w = harness.cell(man, name)
         cfg, tr = harness.config_of(man, w), harness.traffic_of(w)
-        tr = dict(tr, clip_seconds=0.2)
+        tr = dict(tr, **tiny)
         a = sample_clips(cfg, tr, 2 ** 32 + 1, "cpu")
         b = sample_clips(cfg, tr, 2 ** 32 + 1, "cpu")
         c = sample_clips(cfg, tr, 2 ** 32 + 2, "cpu")
@@ -65,3 +78,21 @@ def test_control_clips_per_seed():
         assert all(np.array_equal(x.wave, y.wave) for x, y in zip(a, b))
         assert not np.array_equal(a[0].wave, a[1].wave)
         assert all(0 < x.seed < 2 ** 31 for x in a)
+
+
+def test_mixed_control_clips_take_their_lengths(mixed_cell):
+    """The mixed client's control clips: the shortest length and others
+    drawn from the traffic's lengths, each with its frames, tone and
+    source count."""
+    man = harness.manifest()
+    w = harness.cell(man, mixed_cell)
+    cfg, tr = harness.config_of(man, w), harness.traffic_of(w)
+    L = np.sort(np.asarray(tr["lengths_s"]))
+    clips = sample_clips(cfg, tr, 2 ** 32 + 3, "cpu")
+    assert len(clips) == tr["sample_clips"]
+    assert clips[0].n_source == int(round(L[0] * 30))
+    for c in clips:
+        seconds = c.n_source / 30
+        assert min(abs(L - seconds)) < 1 / 30
+        assert len(c.wave) == int(L[np.argmin(abs(L - seconds))] * 14700)
+        assert len(c.rgb) == len(range(0, c.n_source, 2))

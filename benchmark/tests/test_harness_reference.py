@@ -93,7 +93,7 @@ def test_encode_and_stream(mode):
     assert np.array_equal(rplan.step_nvalid, plan.step_nvalid)
     st = check.Setting(harness.load_json(
         "%s/configs/%s_ntsc_k16_j4.json" % (harness.BENCH_DIR, mode.lower())),
-        "device", F_src, len(wave), "cpu")
+        "device", "cpu")
     r_ops, r_main, r_aux = encode.encode_movies(
         st.dist, *encode.target_lanes(by[:, :, 0].to(torch.uint8),
                                       by[:, :, 1].to(torch.uint8), RV[mode]),
@@ -183,3 +183,71 @@ def test_graph_path_equals_eager(card, mode, B):
     graphs = encode.BodyGraphs()
     _graph_path_equals_eager(mode, B, card, graphs)
     assert graphs._graphs  # the bodies did run as graphs
+
+
+def test_mixed_batch_streams_are_own_plan_encodes():
+    """The port's batch of clips of different lengths
+    (`mesh.encode_movies_mixed`, every movie padded to the longest and cut
+    to its own ops) gives each clip the ops and the stream of its own-plan
+    encode by the reference (`check.Setting.encode_each`, each clip alone
+    under its own plan, with no padding), op for op and byte for byte."""
+    cfg = harness.load_json(f"{harness.BENCH_DIR}/configs/"
+                            "dhgr_ntsc_k16_j4.json")
+    rng = np.random.default_rng(2 ** 31 + 29)
+    ph = gen.phases(rng, 3)
+    ins, movies, levels = [], [], []
+    for i, seconds in enumerate((0.5, 1.3, 2.2)):  # 15, 39, 66 frames
+        n_src = int(round(seconds * 30))
+        pattern = gen.synth_movies_device(ph[i:i + 1], 12, "cpu")[0]
+        enc = gen.rolled_encoded(pattern.numpy(), n_src, 2)
+        src = np.zeros((n_src,) + enc.shape[1:], np.uint8)
+        src[::2] = enc
+        fr = p_frames.ingest(src, VideoMode.DHGR, Palette.NTSC,
+                             every_n_video_frames=2, frame_rate=30.0)
+        wave = gen.tones(rng, 1, seconds, 14700, (220, 880))[0]
+        lv = np.asarray(p_audio.Audio(data=wave, rate=14700, bitrate=14700,
+                                      device="cpu").levels())
+        movies.append((fr.targets_main, fr.targets_aux, fr.n_frames_total,
+                       len(lv)))
+        levels.append(lv)
+        ins.append(check.ClipIn(enc, wave, 2 ** 31 - 7 + i, n_src))
+    dist = get_distance(VideoMode.DHGR, Palette.NTSC, device="cpu")
+    flats, plan_max, n_ops = mesh.encode_movies_mixed(
+        dist, movies, VideoMode.DHGR, 30.0, 14700.0, every_n_video_frames=2,
+        k=16, j=4, seeds=[c.seed for c in ins])
+    assert len(set(n_ops)) == 3 and plan_max.n_ops > max(n_ops[:2])
+    st = check.Setting(cfg, "host", "cpu")
+    targets = st.targets(ins)
+    for c, t, m, flat, lv, (want, _, _) in zip(
+            ins, targets, movies, flats, levels,
+            st.encode_each(ins, targets)):
+        assert np.array_equal(t[0], m[0]) and np.array_equal(t[1], m[1])
+        assert st.plan(c).n_ops == len(flat) == len(want)
+        assert np.array_equal(want, flat)
+        assert st.stream(want, st.levels(c)) == emit_stream_fast(
+            flat, lv[:len(flat)], VideoMode.DHGR)
+
+
+def test_encode_each_groups_clips_by_plan(monkeypatch):
+    """Clips of one plan are encoded together, in their order, and a clip
+    of another length alone, each under its own plan."""
+    cfg = harness.load_json(f"{harness.BENCH_DIR}/configs/"
+                            "dhgr_ntsc_k16_j4.json")
+    st = check.Setting(cfg, "host", "cpu")
+    calls = []
+
+    def fake(targets, seeds, plan, control=False):
+        calls.append((list(seeds), plan.n_ops))
+        return ([s for s in seeds], np.array(seeds), np.array(seeds))
+
+    monkeypatch.setattr(st, "encode", fake)
+    wave = np.zeros(4000, np.float32)
+    clips = [check.ClipIn(None, wave, 1, 8), check.ClipIn(None, wave, 2, 5),
+             check.ClipIn(None, wave, 3, 8), check.ClipIn(None, wave[:900],
+                                                          4, 8)]
+    out = st.encode_each(clips, [None] * 4)
+    assert [o[0] for o in out] == [1, 2, 3, 4]
+    assert calls == [([1, 3], st.plan(clips[0]).n_ops),
+                     ([2], st.plan(clips[1]).n_ops),
+                     ([4], st.plan(clips[3]).n_ops)]
+    assert len({n for _, n in calls}) == 3

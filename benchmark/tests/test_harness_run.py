@@ -10,24 +10,31 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import control, harness, run
+from benchmark import control, drive, harness, run
 
-TINY = {
-    "batch_pipelined": dict(clip_seconds=0.2, batch=2, pool=1,
-                            sample_span=1, sample_rounds=1, sample_movies=2),
-    "solo_closed": dict(clip_seconds=0.2, pool=2, sample_span=1,
-                        sample_clips=1),
-}
 MAN = harness.manifest()
 CELLS = [w["name"] for w in MAN["workloads"]]
+MIXED = "t_mixed"  # the tests' own mixed-length cell (fixture `mixed_cell`)
+RUN_CELLS = CELLS + [MIXED]
 
 
 STREAM_READERS = ("stream.frames_ms_per_movie_s",
                   "stream.encode_ms_per_movie_s")
 
 
+def _client(cell):
+    return harness.traffic_of(harness.cell(harness.manifest(), cell))["client"]
+
+
+def _use(cell, request):
+    """Add the tests' own mixed-length cell where a case takes it."""
+    if cell == MIXED:
+        request.getfixturevalue("mixed_cell")
+
+
 def _tiny(cell):
-    return TINY[harness.traffic_of(harness.cell(MAN, cell))["client"]]
+    """The tiny-run overrides that the cell's client declares."""
+    return dict(drive.client(_client(cell)).TINY)
 
 
 def _run(cell, seed=2 ** 31 + 3, trace=False):
@@ -37,13 +44,17 @@ def _run(cell, seed=2 ** 31 + 3, trace=False):
     return json.loads(line), lines
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_sound_run_is_correct(cell):
+@pytest.mark.parametrize("cell", RUN_CELLS)
+def test_sound_run_is_correct(cell, request):
+    _use(cell, request)
     out, lines = _run(cell)
     assert out["correct"] is True and out["failed"] == 0
     assert list(out)[-1] == "checks"
     assert lines[-1].startswith("check failed_clips")
-    e2e = harness.metrics_of(MAN, cell, False)
+    # the mixed client keeps no final screens: its padded encode's hold
+    # the padding
+    assert ("finals_bad_bytes" in out["checks"]) == (cell != MIXED)
+    e2e = harness.metrics_of(harness.manifest(), cell, False)
     # every end-to-end metric read but those from the device's trace,
     # which a run on the CPU has not (test_short_run_on_card reads them)
     assert set(out["metrics"]) == {m["name"] for m in e2e
@@ -85,9 +96,9 @@ def test_a_new_client_file_is_found_by_name(tmp_path, monkeypatch):
     defines drives a whole run, with no edit to drive.py."""
     import shutil
 
-    from benchmark import drive
     from benchmark.reference import check
 
+    tiny = _tiny("dhgr_solo_10s")
     (tmp_path / "clients").mkdir()
     (tmp_path / "limits").mkdir()
     shutil.copy(f"{drive.CLIENTS_DIR}/solo_closed.py",
@@ -101,13 +112,82 @@ def test_a_new_client_file_is_found_by_name(tmp_path, monkeypatch):
     assert drive.client("solo_copy").__module__.endswith("solo_copy")
     code, line, lines = run.run_cell(
         "dhgr_solo_10s", 2 ** 31 + 9, 0.3, False, on_card=False,
-        traffic_override=dict(_tiny("dhgr_solo_10s"), client="solo_copy"))
+        traffic_override=dict(tiny, client="solo_copy"))
     assert code == 0, lines
     assert json.loads(line)["correct"] is True
 
 
-@pytest.mark.parametrize("cell", ["dhgr_batch32_10s", "dhgr_solo_10s"])
-def test_control_is_not_correct(cell):
+def test_a_new_client_brings_its_own_tiny_run(tmp_path, monkeypatch,
+                                             mixed_cell):
+    """A new client file declares its own tiny-run overrides (`TINY`): a
+    cell on it runs tiny through these tests with no edit to them."""
+    import shutil
+
+    from benchmark.reference import check
+
+    (tmp_path / "clients").mkdir()
+    (tmp_path / "limits").mkdir()
+    text = open(f"{drive.CLIENTS_DIR}/batch_mixed.py").read()
+    tiny = "TINY = dict(lengths_s=[0.2, 0.3, 0.5],"
+    assert tiny in text
+    (tmp_path / "clients" / "mixed_copy.py").write_text(text.replace(
+        tiny, "TINY = dict(lengths_s=[0.2, 0.3, 0.4, 0.5],"))
+    shutil.copy(f"{check.LIMITS_DIR}/batch_mixed.json",
+                tmp_path / "limits" / "mixed_copy.json")
+    monkeypatch.setattr(drive, "CLIENTS_DIR", str(tmp_path / "clients"))
+    monkeypatch.setattr(check, "LIMITS_DIR", str(tmp_path / "limits"))
+    real = harness.traffic_of
+    monkeypatch.setattr(harness, "traffic_of",
+                        lambda w: dict(real(w), client="mixed_copy"))
+    assert len(_tiny(mixed_cell)["lengths_s"]) == 4
+    out, _ = _run(mixed_cell, seed=2 ** 31 + 19)
+    assert out["correct"] is True and out["attempted"] == 4
+
+
+def test_a_window_shorter_than_a_round_reaches_the_sampled_round(
+        mixed_cell):
+    """The mixed client with its sample in the second round (seed
+    2 ** 31 + 5 draws round 1 of 2) and a window that ends within the
+    first: the window runs on through the sampled round, and the run is
+    correct."""
+    code, line, lines = run.run_cell(
+        mixed_cell, 2 ** 31 + 5, 0.0, False, on_card=False,
+        traffic_override=dict(_tiny(mixed_cell), sample_span=2))
+    assert code == 0, lines
+    out = json.loads(line)
+    assert out["correct"] is True and out["attempted"] == 6
+
+
+@pytest.mark.parametrize("cell", ["dhgr_batch32_10s", "dhgr_solo_10s",
+                                  MIXED])
+def test_source_size_is_the_configurations(cell, monkeypatch, request):
+    """Each client makes its frames at the configuration's source size,
+    and a run at another size is judged correct."""
+    from benchmark.gen import clips as gen
+
+    real_cfg, real_synth = harness.config_of, gen.synth_movies_device
+    sizes = set()
+
+    def config_of(man, w):
+        return dict(real_cfg(man, w), source_height=96, source_width=200)
+
+    def synth(*a, **k):
+        out = real_synth(*a, **k)
+        sizes.add(tuple(out.shape[2:4]))
+        return out
+
+    _use(cell, request)
+    monkeypatch.setattr(harness, "config_of", config_of)
+    monkeypatch.setattr(gen, "synth_movies_device", synth)
+    out, _ = _run(cell, seed=2 ** 31 + 23)
+    assert out["correct"] is True
+    assert sizes == {(96, 200)}
+
+
+@pytest.mark.parametrize("cell", ["dhgr_batch32_10s", "dhgr_solo_10s",
+                                  MIXED])
+def test_control_is_not_correct(cell, request):
+    _use(cell, request)
     tr = dict(_tiny(cell), clip_seconds=0.4)
     out = control.control_numbers(cell, 2 ** 31 + 7, torch.device("cpu"), tr)
     assert out["correct"] is False
@@ -153,16 +233,65 @@ def _fault_half_batch(monkeypatch):
     monkeypatch.setattr(mesh, "ingest_movies_batch", ingest)
 
 
-FAULTS = [(c, f) for c in CELLS for f in (
-    _fault_state_unchanged, _fault_answer_altered)] + [
-    (c, _fault_half_batch) for c in CELLS
-    if harness.traffic_of(harness.cell(MAN, c))["client"]
-    == "batch_pipelined"]
+def _fault_half_batch_mixed(monkeypatch):
+    """The second half of each mixed batch left out: its movies get the
+    first half's padded targets."""
+    from iivision_tpu_torch import encoder
+
+    real = encoder.prepare_targets
+
+    def prepare(*a, **k):
+        lanes, by = real(*a, **k)
+        h = (lanes.shape[0] + 1) // 2
+        idx = torch.arange(lanes.shape[0]) % h
+        return lanes[idx], by[idx]
+
+    monkeypatch.setattr(encoder, "prepare_targets", prepare)
+
+
+def _fault_not_cut(monkeypatch):
+    """Each stream of a mixed batch left at the batch's longest, not cut
+    to its own clip's ops."""
+    from iivision_tpu_torch.parallel import mesh
+
+    real = mesh.encode_movies_mixed
+
+    def mixed(dist, movies, *a, **k):
+        nf = max(m[2] for m in movies)
+        nt = max(m[3] for m in movies)
+        return real(dist, [(m[0], m[1], nf, nt) for m in movies], *a, **k)
+
+    monkeypatch.setattr(mesh, "encode_movies_mixed", mixed)
+
+
+def _fault_swapped(monkeypatch):
+    """The streams of a mixed batch's first two clips swapped."""
+    from iivision_tpu_torch.parallel import mesh
+
+    real = mesh.encode_movies_mixed
+
+    def mixed(*a, **k):
+        flats, plan, n_ops = real(*a, **k)
+        flats[0], flats[1] = flats[1], flats[0]
+        return flats, plan, n_ops
+
+    monkeypatch.setattr(mesh, "encode_movies_mixed", mixed)
+
+
+# the faults that only one client's timed path can have
+CLIENT_FAULTS = {
+    "batch_pipelined": (_fault_half_batch,),
+    "batch_mixed": (_fault_half_batch_mixed, _fault_not_cut, _fault_swapped),
+}
+FAULTS = [(c, f) for c in RUN_CELLS for f in (
+    (_fault_state_unchanged, _fault_answer_altered) + CLIENT_FAULTS.get(
+        "batch_mixed" if c == MIXED else _client(c), ()))]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS,
                          ids=lambda x: getattr(x, "__name__", x))
-def test_fault_is_not_correct(cell, fault, monkeypatch):
+def test_fault_is_not_correct(cell, fault, monkeypatch, request):
+    _use(cell, request)
     fault(monkeypatch)
     out, _ = _run(cell)
     assert out["correct"] is False
@@ -191,3 +320,17 @@ def test_short_run_on_card(card, cell):
     assert set(out["metrics"]) == names
     assert all(np.isfinite(v["value"]) for v in out["metrics"].values())
 
+
+
+@pytest.mark.card
+def test_mixed_short_run_on_card(card, mixed_cell):
+    """The mixed client on the card, clips of 5 to 40 s in one batch: the
+    window runs on through its sampled round and the run is correct."""
+    code, line, lines = run.run_cell(
+        mixed_cell, 2 ** 31 + 25, 3.0, False,
+        traffic_override=dict(lengths_s=[5.0, 10.0, 20.0, 40.0],
+                              pattern_seconds=10))
+    assert code == 0, lines
+    out = json.loads(line)
+    assert out["correct"] is True and out["attempted"] >= 4
+    assert out["device"]["platform"] == "gpu"
